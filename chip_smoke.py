@@ -7,14 +7,24 @@
 Phases, each printed as it runs:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off.
-2. build: both Hopper kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (in parallel), and their ``-Xptxas -v`` report.
+2. build: all four Hopper kernels from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` (in parallel), and their ``-Xptxas -v`` report.
 3. parity at full width: K1 (fused shifted Gram) at 11,999^2 in f32 and
    bf16 with c = 0, below and above the clamp floor, plus a ragged
    1000 x 333; K2 (r-term combine) at 11,999^2, r in {1, 4}, f32 and
    bf16, xw in {0, 1} — each against its plain PyTorch version (f32:
    max error / max|result|; bf16 output: one bf16 ulp plus the f32
-   sums' error bound, elementwise).
+   sums' error bound, elementwise).  K3 (tiled matmul, alpha = 1.5) at
+   11,999^2 in f32 and bf16 and a ragged 1001 x 333 @ 333 x 517, each
+   driven first through ``kernels.ops.matmul`` as a path of its own
+   (counts zeroed before, read after), held elementwise to the f32 sums'
+   error bound k eps |alpha| (|A| @ |B|).  K4 (causal flash attention)
+   at one qwen3-8b layer (b = 1, s = 4,096, 32 heads of 128) in bf16 and
+   f32 and a ragged s = 4,000, the bf16 one driven first through
+   ``kernels.ops.flash_attention`` as its path (f32: max error / max|v|
+   within 1e-5; bf16: elementwise within the rounding bound of P to bf16
+   before PV, as in the Pallas body, and of the bf16 output, 2^-8 (P|V|)
+   + 2^-8 |o|, plus the f32 term).
 4. kernel times (CUDA events, warm), beside the plain version, one
    PyTorch library call computing the same function, and the bound.
 5. main path: the paper's linverse matrix (n = 11,999, kappa = 9.06e3)
@@ -27,6 +37,16 @@ Phases, each printed as it runs:
    eigenvalue against the clamped shift and the first-pass ridge).
 6. the same plan on ``method="zolo_static"`` (plain torch ops): its time
    and its singular values against the kernel path's.
+7. the dynamic path: the same matrix through
+   ``plan(SvdConfig(method="zolo_cuda_dynamic", mode="dynamic",
+   l0_policy="runtime", r=4, qr_mode="cholqr2")).svd(a)``: the run-time
+   bound l_init, the iterations, the last residual, converged, the wall
+   time of a warm solve, the peak memory, the K1/K2 launches per solve
+   (K1: 1 + 2r in the CholeskyQR2 iteration, then 1 per iteration; K2:
+   1 per iteration) and the accuracy figures of phase 5, held to the
+   same limits.
+8. the plain yardstick of the dynamic path, ``method="zolo"``: it
+   launches no kernel, and its singular values agree with phase 7's.
 
 The line before the last is a JSON object with one record per kernel;
 the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
@@ -51,7 +71,14 @@ N = 11_999          # the paper's linverse dimension (Table 3)
 KAPPA = 9.06e3      # its 2-norm condition number
 R = 4               # the paper's r for linverse
 RAGGED = (1000, 333)
-EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2}  # per linverse solve
+EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
+                   "matmul": 0, "flash_attention": 0}
+MM_RAGGED = (1001, 333, 517)   # (m, k, n): no multiple of any tile
+MM_ALPHA = 1.5
+# one attention layer of qwen3-8b (src/repro/configs/qwen3_8b.py): 32
+# query heads of 128, its 8 kv heads expanded to 32; b = 1, s = 4,096
+ATTN = {"b": 1, "s": 4096, "h": 32, "d": 128}
+ATTN_RAGGED_S = 4000
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 on them, and HBM3 bandwidth
 PEAK_F32 = 67e12
@@ -60,6 +87,11 @@ PEAK_BYTES = 3.35e12
 K1_TOL = 5e-5       # max|err| / max|G|: f32 sums over m = 12k products
 K2_TOL_F32 = 1e-6   # max|err| / max|Y| in f32 (bf16: combine_bf16_ok)
 ACCURACY_TOL = 1e-4  # f32 eps * sqrt(n) ~ 1.3e-5, times a small factor
+# K4 in f32, max error / max|v|: the d-term scores and the s-term sums
+# are rounded in another order than the plain version (measured ~1e-7).
+# bf16 is held elementwise by flash_bf16_bound, with this as its f32 term
+K4_TOL_F32 = 1e-5
+KERNEL_MODULES = ("gram", "grouped_combine", "matmul", "flash_attention")
 
 
 def say(*parts):
@@ -168,7 +200,107 @@ def phase_build():
     return {"seconds": secs, "ptxas": dict(build.PTXAS_LOG)}
 
 
-def phase_parity(torch, device, n, ragged):
+def kernel_modules():
+    """The launch counters of the four kernel wrappers."""
+    import importlib
+
+    return tuple(importlib.import_module(f"repro_torch.kernels.{name}")
+                 for name in KERNEL_MODULES)
+
+
+def read_counts(counters):
+    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+
+
+def path_run(torch, counters, fn):
+    """Drive one path: every launch count set to 0 just before, read
+    just after (the device synchronised in between)."""
+    for mod in counters:
+        mod.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, read_counts(counters)
+
+
+def check_path_launches(device, name, launches):
+    if device.type == "cuda":
+        want = {k: int(k == name) for k in KERNEL_MODULES}
+        check(launches == want, f"the {name} path launched {launches}, "
+              f"expected {want}")
+
+
+def matmul_case(torch, rows, a, b, tag, got=None):
+    """K3 against its plain version, elementwise within the f32 sums'
+    forward error bound k eps |alpha| (|A| @ |B|) (two orders of k exact
+    products)."""
+    from repro_torch.kernels import ops, ref
+
+    k = a.shape[1]
+    if got is None:
+        got = ops.matmul(a, b, MM_ALPHA)
+    want = ref.matmul_ref(a, b, MM_ALPHA)
+    diff = (got - want).abs()
+    bound = (k * torch.finfo(torch.float32).eps * abs(MM_ALPHA)
+             * (a.float().abs() @ b.float().abs()))
+    ok = bool((diff <= bound).all())
+    err = float(diff.amax())
+    rel = err / float(want.abs().amax())
+    rows.append({"kernel": "matmul", "case": tag, "max_abs_err": err,
+                 "rel_err": rel})
+    say(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}, within "
+        f"k eps |alpha| (|A| @ |B|) everywhere: {ok}")
+    check(ok, f"K3 {tag}")
+    check(got.dtype == torch.float32, f"K3 {tag}: output {got.dtype}")
+
+
+def flash_bf16_bound(torch, q, k, v, want):
+    """Elementwise bound on a bf16 K4 output against the plain version
+    ``want`` (f32, P kept in f32): 2^-8 (P|V|)_ij for P rounded to bf16
+    before PV (2^-8 relative per weight; P|V| is the plain version on
+    |v|), 2^-8 |o_ij| for the bf16 output (|o| <= |want| + 2^-8 P|V|),
+    and K4_TOL_F32 max|v| for the f32 arithmetic."""
+    from repro_torch.kernels import ref
+
+    u = 2.0 ** -8
+    pv = ref.flash_attention_ref(q, k, v.abs())
+    return ((u + u * u) * pv + u * want.abs()
+            + K4_TOL_F32 * float(v.float().abs().amax()))
+
+
+def flash_case(torch, rows, q, k, v, tag, got=None):
+    """K4 against its plain version: f32 max error / max|v| within
+    K4_TOL_F32; bf16 elementwise within flash_bf16_bound."""
+    from repro_torch.kernels import ops, ref
+
+    if got is None:
+        got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    diff = (got.float() - want).abs()
+    err = float(diff.amax())
+    rel = err / float(v.float().abs().amax())
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"K4 {tag}: output {got.dtype} {tuple(got.shape)}")
+    row = {"kernel": "flash_attention", "case": tag, "max_abs_err": err,
+           "rel_err": rel}
+    if q.dtype == torch.float32:
+        say(f"K4 {tag}: max_abs_err {err:.3e}, / max|v| {rel:.3e} "
+            f"(tolerance {K4_TOL_F32:.3e})")
+        ok = rel <= K4_TOL_F32
+    else:
+        bound = flash_bf16_bound(torch, q, k, v, want)
+        ratio = float((diff / bound).amax())
+        row["max_err_over_bound"] = ratio
+        ok = ratio <= 1.0
+        say(f"K4 {tag}: max_abs_err {err:.3e}, / max|v| {rel:.3e}; "
+            f"max |err| / (2^-8 (P|V| + |o|) + f32 term) {ratio:.3f} "
+            f"(tolerance 1)")
+        del bound
+    rows.append(row)
+    check(ok, f"K4 {tag}: beyond its tolerance")
+
+
+def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged):
     from repro_torch.kernels import ops, ref
 
     say("== phase 3: kernel parity at full width")
@@ -245,13 +377,62 @@ def phase_parity(torch, device, n, ragged):
                 check(ok, f"K2 {case}")
                 del got, want
             del x, t
-    return rows, (a32, t32, coef, mhat)
+
+    # K3: its path is kernels.ops.matmul (no solver path reaches it)
+    counters = kernel_modules()
+    paths = {}
+    b32 = t32[0]
+    got, paths["matmul"] = path_run(
+        torch, counters, lambda: ops.matmul(a32, b32, MM_ALPHA))
+    say(f"kernels.ops.matmul path, f32 ({n}, {n}) @ ({n}, {n}): launches "
+        f"{paths['matmul']}")
+    check_path_launches(device, "matmul", paths["matmul"])
+    matmul_case(torch, rows, a32, b32, f"f32 {n}x{n}", got)
+    del got
+    ab, bb = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    matmul_case(torch, rows, ab, bb, f"bf16 {n}x{n}")
+    del ab, bb
+    mm, kk, nn = mm_ragged
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        a = torch.randn((mm, kk), generator=gen, device=device).to(dt)
+        b = torch.randn((kk, nn), generator=gen, device=device).to(dt)
+        matmul_case(torch, rows, a, b, f"{tag} ({mm}, {kk}) @ ({kk}, {nn})")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # K4: its path is kernels.ops.flash_attention (no model reaches it)
+    shape = (attn["b"], attn["s"], attn["h"], attn["d"])
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
+                   for _ in range(3))
+        got = None
+        if dt == torch.bfloat16:
+            got, paths["flash_attention"] = path_run(
+                torch, counters, lambda: ops.flash_attention(q, k, v))
+            say(f"kernels.ops.flash_attention path, bf16 {shape}: launches "
+                f"{paths['flash_attention']}")
+            check_path_launches(device, "flash_attention",
+                                paths["flash_attention"])
+        flash_case(torch, rows, q, k, v, f"{tag} s={attn['s']}", got)
+        del got
+        r_ = slice(0, s_ragged)
+        flash_case(torch, rows, q[:, r_].contiguous(), k[:, r_].contiguous(),
+                   v[:, r_].contiguous(), f"{tag} s={s_ragged}")
+        del q, k, v
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows, (a32, t32, coef, mhat), paths
 
 
-def phase_times(torch, device, clock, tensors, n):
+def phase_times(torch, device, clock, tensors, n, attn):
     from repro_torch.kernels import ops, ref
 
     say("== phase 4: kernel times")
+    # the plain versions and library calls of K1 and K3 are cuBLAS
+    # products: they must run in true f32, as the kernels do
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the f32 plain and library times would not be f32")
     a32, t32, coef, mhat = tensors
     m = n
     reps = 5 if device.type == "cuda" else 2
@@ -282,15 +463,31 @@ def phase_times(torch, device, clock, tensors, n):
     recs["gram"] = k1
 
     x = a32
+    xrow = x.view(1, -1)
+    mh = float(mhat)  # read once, outside the timed calls
     out = {}
     for r in (1, R):
         t = t32[:r]
         a = coef[:r]
+        # one call computing mhat (xw X + sum_j a_j T_j) in f32 (xw = 1):
+        # the (1, r) @ (r, m n) product plus beta X
+        arow, tflat = a.view(1, r), t.reshape(r, -1)
+
+        def library():
+            return torch.addmm(xrow, arow, tflat, beta=mh, alpha=mh)
+
+        want = ref.polar_update_ref(x, t, a, mhat)
+        lib_err = float((library().view(m, n) - want).abs().amax())
+        check(lib_err <= K2_TOL_F32 * float(want.abs().amax()),
+              f"K2 r={r}: addmm is not the combine ({lib_err:.3e})")
+        del want
         rec = {"ms": clock.ms(lambda: ops.polar_update(x, t, a, mhat),
                               4 * reps, warm=2),
                "plain_ms": clock.ms(
                    lambda: ref.polar_update_ref(x, t, a, mhat), reps),
-               "library_ms": clock.ms(
+               "library_ms": clock.ms(library, 4 * reps, warm=2),
+               "library_max_abs_err": lib_err,
+               "einsum_terms_only_ms": clock.ms(
                    lambda: torch.einsum("j,jmn->mn", a, t), reps)}
         nbytes = 4.0 * (r + 2) * m * n
         flops = (2.0 * r + 2.0) * m * n
@@ -299,34 +496,131 @@ def phase_times(torch, device, clock, tensors, n):
             flops / PEAK_F32 else "operations"
         rec["shape"] = f"X f32 ({m}, {n}), T ({r}, {m}, {n}), xw = 1"
         say(f"K2 f32 r={r}: kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms, library (einsum) "
-            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-            f"({rec['bound_by']})")
+            f"{rec['plain_ms']:.3f} ms, library (addmm) "
+            f"{rec['library_ms']:.3f} ms (max_abs_err against the plain "
+            f"version {lib_err:.3e}; einsum of the terms alone, without X "
+            f"and mhat: {rec['einsum_terms_only_ms']:.3f} ms), bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
         out[r] = rec
     recs["grouped_combine"] = dict(out[R], r1=out[1])
+
+    b32 = t32[0]
+    k = n
+    zero = torch.zeros((1, 1), device=device)
+    k3 = {"ms": clock.ms(lambda: ops.matmul(a32, b32, MM_ALPHA), reps),
+          "plain_ms": clock.ms(lambda: ref.matmul_ref(a32, b32, MM_ALPHA),
+                               reps),
+          # one call computing alpha (A @ B) in f32 (beta = 0 ignores zero)
+          "library_ms": clock.ms(lambda: torch.addmm(
+              zero, a32, b32, beta=0.0, alpha=MM_ALPHA), reps)}
+    flops = 2.0 * m * n * k
+    nbytes = 4.0 * (m * k + k * n + m * n)
+    k3["bound_ms"] = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    k3["bound_by"] = "operations" if flops / PEAK_F32 > \
+        nbytes / PEAK_BYTES else "bytes"
+    k3["shape"] = f"A, B f32 ({m}, {k}) @ ({k}, {n}), alpha = {MM_ALPHA}"
+    ab, bb = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    k3["bf16_ms"] = clock.ms(lambda: ops.matmul(ab, bb, MM_ALPHA), reps)
+    k3["bf16_plain_ms"] = clock.ms(lambda: ref.matmul_ref(ab, bb, MM_ALPHA),
+                                   reps)
+    # bf16 @ bf16 in one call returns bf16, not the kernel's f32 C
+    k3["bf16_library_matmul_bf16_out_ms"] = clock.ms(lambda: ab @ bb, reps)
+    k3["bf16_bound_ms"] = max(flops / PEAK_BF16,
+                              (2.0 * (m * k + k * n) + 4.0 * m * n)
+                              / PEAK_BYTES) * 1e3
+    del ab, bb
+    say(f"K3 f32 ({m}, {k}) @ ({k}, {n}): kernel {k3['ms']:.3f} ms, plain "
+        f"{k3['plain_ms']:.3f} ms, library (addmm) {k3['library_ms']:.3f} "
+        f"ms, bound {k3['bound_ms']:.3f} ms ({k3['bound_by']}); bf16 kernel "
+        f"{k3['bf16_ms']:.3f} ms, plain {k3['bf16_plain_ms']:.3f} ms, "
+        f"bf16-output matmul {k3['bf16_library_matmul_bf16_out_ms']:.3f} "
+        f"ms, bound {k3['bf16_bound_ms']:.3f} ms")
+    recs["matmul"] = k3
+
+    import torch.nn.functional as F
+
+    b_, s_, h_, d_ = attn["b"], attn["s"], attn["h"], attn["d"]
+    gen = torch.Generator(device=device).manual_seed(99)
+    # QK^T and PV over the lower triangle, diagonal included
+    flops = 2.0 * 2.0 * b_ * h_ * (s_ * (s_ + 1) / 2.0) * d_
+    k4 = {}
+    for dt, tag, peak in ((torch.bfloat16, "bf16", PEAK_BF16),
+                          (torch.float32, "f32", PEAK_F32)):
+        q, k_, v = (torch.randn((b_, s_, h_, d_), generator=gen,
+                                device=device).to(dt) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v))
+        nbytes = 4.0 * b_ * s_ * h_ * d_ * dt.itemsize
+        rec = {"ms": clock.ms(lambda: ops.flash_attention(q, k_, v),
+                              4 * reps, warm=2),
+               "plain_ms": clock.ms(
+                   lambda: ref.flash_attention_ref(q, k_, v), reps),
+               "library_ms": clock.ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True), 4 * reps, warm=2),
+               "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+               "bound_by": "operations" if flops / peak > nbytes /
+               PEAK_BYTES else "bytes",
+               "shape": f"q, k, v {tag} {(b_, s_, h_, d_)}, causal"}
+        say(f"K4 {tag} {(b_, s_, h_, d_)}: kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, library (sdpa) "
+            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bound_by']})")
+        k4[tag] = rec
+        del q, k_, v, qt, kt, vt
+    recs["flash_attention"] = dict(k4["bf16"], f32=k4["f32"])
     return recs
 
 
 def run_solve(torch, clock, p, a, counters):
+    """One ``p.svd_info(a)`` (``p.svd(a)`` with its PolarInfo) with every
+    launch count set to 0 just before and read just after; returns (u, s,
+    vh, seconds, launches, info)."""
     for mod in counters:
         mod.launches = 0
     clock.sync()
     t0 = time.perf_counter()
-    u, s, vh = p.svd(a)
+    u, s, vh, info = p.svd_info(a)
     clock.sync()
     secs = time.perf_counter() - t0
-    return u, s, vh, secs, {m.__name__.rsplit(".", 1)[-1]: m.launches
-                            for m in counters}
+    return u, s, vh, secs, read_counts(counters), info
+
+
+def accuracy(torch, a, u, s, vh, s_true):
+    """The phase-5 figures: max|s - s_true|/s_max, ||A - U S Vh||_F /
+    ||A||_F and the orthogonality of U and Vh, all in f64; raises if any
+    exceeds ACCURACY_TOL or the factors are not finite and descending."""
+    from repro_torch.core.svd import orthogonality
+
+    n = a.shape[0]
+    check(bool(torch.isfinite(u).all() and torch.isfinite(s).all()
+               and torch.isfinite(vh).all()), "non-finite factors")
+    check(u.shape == (n, n) and s.shape == (n,) and vh.shape == (n, n),
+          "factor shapes")
+    check(bool((s[:-1] >= s[1:]).all()), "singular values not descending")
+    s64 = s.double()
+    s_err = float((s64 - s_true).abs().amax()) / float(s_true[0])
+    a64 = a.double()
+    resid = float(torch.linalg.matrix_norm(
+        a64 - (u.double() * s64) @ vh.double()) /
+        torch.linalg.matrix_norm(a64))
+    del a64
+    rec = {"s_err": s_err, "residual": resid,
+           "orth_u": float(orthogonality(u.double())),
+           "orth_vh": float(orthogonality(vh.double().mT))}
+    say(f"max|s - s_true|/s_max {s_err:.3e}; ||A - U S Vh||_F/||A||_F "
+        f"{resid:.3e}; orth(U) {rec['orth_u']:.3e}; orth(Vh) "
+        f"{rec['orth_vh']:.3e}")
+    for name, val in rec.items():
+        check(val <= ACCURACY_TOL, f"{name} {val:.3e} > {ACCURACY_TOL:g}")
+    return rec
 
 
 def phase_main(torch, device, clock, n):
     import repro_torch.solver as S
     from repro_torch.configs import svd_paper
-    from repro_torch.core.svd import orthogonality
-    from repro_torch.kernels import gram, grouped_combine
 
     say("== phase 5: main path (linverse through zolo_cuda)")
-    counters = (gram, grouped_combine)
+    counters = kernel_modules()
     t0 = time.perf_counter()
     a, s_true = svd_paper.synthesize("linverse", n=n, dtype=torch.float32,
                                      device=device)
@@ -342,7 +636,8 @@ def phase_main(torch, device, clock, n):
     for label in ("warm", "timed"):
         if device.type == "cuda" and label == "timed":
             torch.cuda.reset_peak_memory_stats()
-        u, s, vh, secs, launches = run_solve(torch, clock, p, a, counters)
+        u, s, vh, secs, launches, _ = run_solve(torch, clock, p, a,
+                                                counters)
         say(f"{label} solve: {secs:.3f} s, launches {launches}")
         if device.type == "cuda":
             for k, v in EXPECT_LAUNCHES.items():
@@ -351,33 +646,14 @@ def phase_main(torch, device, clock, n):
         runs.append((secs, launches))
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else None
-    s64 = s.double()
-    smax = float(s_true[0])
-    check(bool(torch.isfinite(u).all() and torch.isfinite(s).all()
-               and torch.isfinite(vh).all()), "non-finite factors")
-    check(u.shape == (n, n) and s.shape == (n,) and vh.shape == (n, n),
-          "factor shapes")
-    check(bool((s[:-1] >= s[1:]).all()), "singular values not descending")
-    s_err = float((s64 - s_true).abs().amax()) / smax
-    a64 = a.double()
-    resid = float(torch.linalg.matrix_norm(
-        a64 - (u.double() * s64) @ vh.double()) /
-        torch.linalg.matrix_norm(a64))
-    del a64
-    orth_u = float(orthogonality(u.double()))
-    orth_v = float(orthogonality(vh.double().mT))
     main = {"n": n, "kappa": KAPPA, "r": R, "iterations": len(p.schedule),
             "warm_s": runs[0][0], "timed_s": runs[1][0],
-            "launches_per_solve": runs[1][1], "peak_bytes": peak,
-            "s_err": s_err, "residual": resid, "orth_u": orth_u,
-            "orth_vh": orth_v}
-    say(f"max|s - s_true|/s_max {s_err:.3e}; ||A - U S Vh||_F/||A||_F "
-        f"{resid:.3e}; orth(U) {orth_u:.3e}; orth(Vh) {orth_v:.3e}")
+            "launches_per_solve": runs[1][1], "peak_bytes": peak}
+    main.update(accuracy(torch, a, u, s, vh, s_true))
     say(f"wall {runs[1][0]:.3f} s; peak memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
-    for name, val in (("s error", s_err), ("residual", resid),
-                      ("orth(U)", orth_u), ("orth(Vh)", orth_v)):
-        check(val <= ACCURACY_TOL, f"{name} {val:.3e} > {ACCURACY_TOL:g}")
+    s_cuda = s
+    del u, vh
 
     main["stages"] = phase_stages(torch, clock, p, a)
     main["first_pass"] = phase_first_pass(torch, p, a)
@@ -385,16 +661,84 @@ def phase_main(torch, device, clock, n):
     say("== phase 6: plain yardstick (zolo_static)")
     ps = S.plan(cfg.replace(method="zolo_static"), (n, n), torch.float32,
                 device=device)
-    _, s_plain, _, secs, launches = run_solve(torch, clock, ps, a, counters)
+    _, s_plain, _, secs, launches, _ = run_solve(torch, clock, ps, a,
+                                                 counters)
     check(all(v == 0 for v in launches.values()),
           f"the plain path launched kernels: {launches}")
-    sdiff = float(((s_plain.double() - s64).abs() / smax).amax())
+    sdiff = float(((s_plain.double() - s_cuda.double()).abs()
+                   / float(s_true[0])).amax())
     say(f"zolo_static solve: {secs:.3f} s; max|s_static - s_cuda|/s_max "
         f"{sdiff:.3e}")
     check(sdiff <= ACCURACY_TOL, f"zolo_static vs zolo_cuda {sdiff:.3e}")
     main["plain_s"] = secs
     main["plain_s_diff"] = sdiff
-    return main
+    main["plain_launches"] = launches
+    return main, a, s_true
+
+
+def phase_dynamic(torch, device, clock, a, s_true):
+    """Phases 7 and 8: the dynamic path on the same matrix, through the
+    kernels and then through the plain ``zolo`` yardstick."""
+    import repro_torch.solver as S
+
+    say("== phase 7: dynamic path (linverse through zolo_cuda_dynamic)")
+    n = a.shape[0]
+    counters = kernel_modules()
+    # qr_mode="cholqr2": the f32 run-time bound sits below 10 sqrt(eps),
+    # where first_mode="auto" asks for the unported Householder regime
+    cfg = S.SvdConfig(method="zolo_cuda_dynamic", mode="dynamic",
+                      l0_policy="runtime", r=R, qr_mode="cholqr2")
+    p = S.plan(cfg, (n, n), torch.float32, device=device)
+    say(repr(p))
+    check(p.mode == "dynamic" and p.method == "zolo_cuda_dynamic",
+          f"plan resolved to {p!r}")
+    runs = []
+    for label in ("warm", "timed"):
+        if device.type == "cuda" and label == "timed":
+            torch.cuda.reset_peak_memory_stats()
+        u, s, vh, secs, launches, info = run_solve(torch, clock, p, a,
+                                                   counters)
+        iters = int(info.iterations)
+        rec = {"l_init": float(info.l_init), "iterations": iters,
+               "residual": float(info.residual),
+               "converged": bool(info.converged),
+               "l_final": float(info.l_final)}
+        say(f"{label} solve: {secs:.3f} s, launches {launches}, {rec}")
+        check(rec["converged"], f"the dynamic solve did not converge: {rec}")
+        # K1: 1 + 2r Grams in the CholeskyQR2 iteration, 1 in each
+        # Cholesky iteration after it; K2: one combine per iteration
+        want = {"gram": 1 + 2 * R + (iters - 1), "grouped_combine": iters,
+                "matmul": 0, "flash_attention": 0}
+        if device.type == "cuda":
+            check(launches == want, f"dynamic solve launched {launches}, "
+                  f"expected {want} for {iters} iterations")
+        runs.append((secs, launches))
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    dyn = dict(rec, warm_s=runs[0][0], timed_s=runs[1][0],
+               launches_per_solve=runs[1][1], peak_bytes=peak)
+    dyn.update(accuracy(torch, a, u, s, vh, s_true))
+    say(f"wall {runs[1][0]:.3f} s; peak memory "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
+    del u, vh
+    dyn["stages"] = phase_dynamic_stages(torch, clock, p, a)
+
+    say("== phase 8: plain yardstick of the dynamic path (zolo)")
+    pz = S.plan(cfg.replace(method="zolo"), (n, n), torch.float32,
+                device=device)
+    _, s_plain, _, secs, launches, info = run_solve(torch, clock, pz, a,
+                                                    counters)
+    check(all(v == 0 for v in launches.values()),
+          f"the plain dynamic path launched kernels: {launches}")
+    sdiff = float(((s_plain.double() - s.double()).abs()
+                   / float(s_true[0])).amax())
+    say(f"zolo solve: {secs:.3f} s, {int(info.iterations)} iterations, "
+        f"converged {bool(info.converged)}; max|s_zolo - s_cuda|/s_max "
+        f"{sdiff:.3e}")
+    check(sdiff <= ACCURACY_TOL, f"zolo vs zolo_cuda_dynamic {sdiff:.3e}")
+    dyn.update(plain_s=secs, plain_s_diff=sdiff, plain_launches=launches,
+               plain_iterations=int(info.iterations))
+    return dyn
 
 
 def phase_stages(torch, clock, p, a):
@@ -414,6 +758,34 @@ def phase_stages(torch, clock, p, a):
     stages = {"polar_s": t1 - t0, "eigh_s": t2 - t1}
     say(f"stages: prescale + Zolo-PD + form_h {stages['polar_s']:.3f} s, "
         f"eigh {stages['eigh_s']:.3f} s")
+    return stages
+
+
+def phase_dynamic_stages(torch, clock, p, a):
+    """Split one dynamic solve: the run-time bounds (``sigma_max_upper``,
+    then ``sigma_min_lower_qr`` of the scaled matrix: one QR and 13 pairs
+    of triangular vector solves), the whole polar stage
+    (``plan.polar``: the bounds again, Zolo-PD and ``form_h``), and
+    ``eigh``."""
+    from repro_torch.core import eig, norms
+
+    clock.sync()
+    t0 = time.perf_counter()
+    x0 = a / norms.sigma_max_upper(a)
+    norms.sigma_min_lower_qr(x0)
+    clock.sync()
+    t1 = time.perf_counter()
+    del x0
+    _, h, _ = p.polar(a)
+    clock.sync()
+    t2 = time.perf_counter()
+    eig.eigh(h)
+    clock.sync()
+    t3 = time.perf_counter()
+    stages = {"bounds_s": t1 - t0, "polar_s": t2 - t1, "eigh_s": t3 - t2}
+    say(f"stages: run-time bounds {stages['bounds_s']:.3f} s; bounds + "
+        f"Zolo-PD + form_h {stages['polar_s']:.3f} s; eigh "
+        f"{stages['eigh_s']:.3f} s")
     return stages
 
 
@@ -467,20 +839,31 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     device = torch.device("cpu") if args.rehearse_cpu else \
         torch.device("cuda", 0)
-    n, ragged = (N, RAGGED) if device.type == "cuda" else (160, (50, 17))
+    if device.type == "cuda":
+        n, ragged, attn = N, RAGGED, ATTN
+        mm_ragged, s_ragged = MM_RAGGED, ATTN_RAGGED_S
+    else:
+        n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
+        mm_ragged, s_ragged = (37, 29, 41), 80
     clock = Clock(torch, device)
 
     t_start = time.perf_counter()
     record = {"device": phase_device(torch, device)}
     if device.type == "cuda":
         record["build"] = phase_build()
-    record["parity"], tensors = phase_parity(torch, device, n, ragged)
-    times = phase_times(torch, device, clock, tensors, n)
+    record["parity"], tensors, paths = phase_parity(
+        torch, device, n, ragged, attn, mm_ragged, s_ragged)
+    times = phase_times(torch, device, clock, tensors, n, attn)
     del tensors
     if device.type == "cuda":
         torch.cuda.empty_cache()
     record["times"] = times
-    record["main"] = main_rec = phase_main(torch, device, clock, n)
+    record["path_launches"] = paths
+    main_rec, a, s_true = phase_main(torch, device, clock, n)
+    record["main"] = main_rec
+    record["dynamic"] = dyn_rec = phase_dynamic(torch, device, clock, a,
+                                                s_true)
+    del a
     record["seconds"] = time.perf_counter() - t_start
 
     kernels = []
@@ -488,20 +871,35 @@ def main(argv=None) -> int:
                         "src/repro/kernels/gram.py:41"),
                "grouped_combine": (
                    "src/repro_torch/kernels/csrc/grouped_combine.cu",
-                   "src/repro/kernels/grouped_combine.py:36")}
+                   "src/repro/kernels/grouped_combine.py:36"),
+               "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+                          "src/repro/kernels/matmul.py:22"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:31")}
     main_case = {"gram": "f32 %dx%d c=0" % (n, n),
-                 "grouped_combine": "f32 r=%d xw=1" % R}
+                 "grouped_combine": "f32 r=%d xw=1" % R,
+                 "matmul": "f32 %dx%d" % (n, n),
+                 "flash_attention": "bf16 s=%d" % attn["s"]}
     for name, (src, replaces) in sources.items():
         t = times[name]
         err = next(row["max_abs_err"] for row in record["parity"]
                    if row["kernel"] == name and row["case"] == main_case[name])
+        by_path = {"static_solve": main_rec["launches_per_solve"][name],
+                   "dynamic_solve": dyn_rec["launches_per_solve"][name]}
+        if name in paths:
+            # off the solver path: its own path is its kernels.ops entry
+            by_path[f"kernels.ops.{name}"] = paths[name][name]
+            launches = paths[name][name]
+        else:
+            launches = by_path["static_solve"]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": main_rec["launches_per_solve"][name],
+                        "replaces": replaces, "launches": launches,
+                        "launches_by_path": by_path,
                         "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"], "case": t["shape"]})
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,10 +1,16 @@
-"""Zolotarev coefficients (paper §2.1-§2.2), the numpy/scipy half.
+"""Zolotarev coefficients (paper §2.1-§2.2).
 
-Port of the trace-time (float64 numpy/scipy) part of
-``repro/core/coeffs.py``: the same f64 operations in the same order, so
-schedules equal the reference's bit for bit.  The in-graph ``zolo_coeffs``
-and the QDWH coefficients belong to the dynamic slice and are not ported
-yet.
+Port of ``repro/core/coeffs.py``, both halves:
+
+* ``zolo_coeffs`` / ``zolo_l_update`` — torch, on tensors: coefficients
+  computed at run time from a lower bound ``l`` on the device (the
+  dynamic engine's in-graph coefficients), in ``l``'s dtype, through
+  :mod:`repro_torch.core.elliptic`.
+* ``zolo_coeffs_np`` ... ``zolo_schedule_np`` — float64 numpy/scipy, the
+  same operations in the same order as the reference, so static
+  schedules equal the reference's bit for bit.
+
+The QDWH coefficients belong to a later slice.
 
 Notation follows the paper: for order ``r`` and lower bound ``l``,
 
@@ -21,10 +27,60 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 from scipy import special as _scipy_special
+
+from repro_torch.core import elliptic
 
 EPS64 = 1.1e-16
 MAX_R = 8
+
+
+# ---------------------------------------------------------------------------
+# torch backend (run-time coefficients)
+# ---------------------------------------------------------------------------
+
+
+def zolo_coeffs(l, r: int):
+    """Zolotarev coefficients for order ``r`` and lower bound ``l`` (a
+    tensor, or a python number taken as float64), in ``l``'s dtype and on
+    its device.
+
+    Returns ``(c, a, mhat)``: ``c`` (2r,) (``c[i-1]`` is the paper's
+    ``c_i``), ``a`` (r,) and a 0-dim ``mhat``."""
+    l = elliptic._as_tensor(l)
+    mc = l * l
+    kp = elliptic.ellipk_mc(mc)
+    i = torch.arange(1, 2 * r + 1, dtype=l.dtype, device=l.device)
+    u = i * kp / (2 * r + 1)
+    sn, cn, _ = elliptic.ellipj_mc(u, mc)
+    c = mc * (sn * sn) / (cn * cn)
+
+    c_even = c[1::2]  # c_{2j},   j = 1..r
+    c_odd = c[0::2]   # c_{2j-1}, j = 1..r
+    mhat = torch.prod((1.0 + c_odd) / (1.0 + c_even))
+
+    # a_j by the residue formula; the k == j factor of the denominator
+    # product is masked to 1
+    diff_even = c_odd[:, None] - c_even[None, :]  # c_{2j-1} - c_{2k}
+    diff_odd = c_odd[:, None] - c_odd[None, :]    # c_{2j-1} - c_{2k-1}
+    eye = torch.eye(r, dtype=l.dtype, device=l.device)
+    a = -torch.prod(diff_even, dim=1) / torch.prod(diff_odd + eye, dim=1)
+    return c, a, mhat
+
+
+def zolo_l_update(l, c, mhat):
+    """Map the lower bound through the scaled Zolotarev function."""
+    l = elliptic._as_tensor(l)
+    c_even = c[1::2]
+    c_odd = c[0::2]
+    l2 = l * l
+    return mhat * l * torch.prod((l2 + c_even) / (l2 + c_odd))
+
+
+# ---------------------------------------------------------------------------
+# numpy/scipy backend (static schedules)
+# ---------------------------------------------------------------------------
 
 
 def _ellipj_mc_np(u, mc):

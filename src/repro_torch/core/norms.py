@@ -5,6 +5,8 @@ Port of the main-path part of ``repro/core/norms.py``:
 * ``sigma_max_upper`` — guaranteed upper bound
   min(sqrt(||A||_1 ||A||_inf), ||A||_F).
 * ``sigma_max_power`` — power iteration (sharp, lower-biased).
+* ``sigma_min_lower_qr`` — sigma_min lower estimate from one QR and
+  inverse iteration on R (the dynamic engine's run-time bound).
 
 The reference draws the power iteration's start vector from
 ``jax.random.normal(PRNGKey(0))``, which torch cannot reproduce.  Here
@@ -15,6 +17,7 @@ planner's prescale alpha, so parity tests hand both packages the same one.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -66,3 +69,38 @@ def sigma_max_power(a: torch.Tensor, iters: int = 10, *,
                                                      keepdim=True), min=tiny)
     return torch.linalg.vector_norm(torch.einsum("...mn,...n->...m", a, v),
                                     dim=-1)
+
+
+def sigma_min_lower_qr(x: torch.Tensor, iters: int = 12,
+                       safety: float = 0.5) -> torch.Tensor:
+    """sigma_min lower estimate via one QR + inverse iteration on R.
+
+    Never squares the condition number, so it resolves sigma_min down to
+    ~eps * sigma_max.  bf16/f16 inputs promote to f32 up front (the
+    result is in the promoted dtype).  Deterministic: the inverse
+    iteration starts from the all-ones vector.  An exactly singular R
+    sends the solves to inf/NaN; the estimate then falls to the floor
+    4 eps, never NaN."""
+    n = x.shape[-1]
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    x = x.to(dtype)
+    r = torch.linalg.qr(x, mode="r")[1]
+
+    def solve(v):
+        # w = R^{-1} R^{-T} v  (power iteration on (R^T R)^{-1})
+        y = torch.linalg.solve_triangular(r.mT, v[..., None], upper=False)
+        z = torch.linalg.solve_triangular(r, y, upper=True)
+        return z[..., 0]
+
+    tiny = torch.finfo(dtype).tiny
+    v = torch.ones(x.shape[:-2] + (n,), dtype=dtype,
+                   device=x.device) / math.sqrt(n)
+    for _ in range(iters):
+        w = solve(v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1,
+                                                     keepdim=True), min=tiny)
+    mu = torch.linalg.vector_norm(solve(v), dim=-1)  # ~ 1 / sigma_min^2
+    sig = 1.0 / torch.sqrt(torch.clamp(mu, min=tiny))
+    eps = torch.finfo(dtype).eps
+    sig = torch.where(torch.isfinite(sig), sig, torch.zeros_like(sig))
+    return torch.clamp(safety * sig, min=4 * eps)

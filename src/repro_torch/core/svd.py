@@ -6,9 +6,11 @@ Paper Algorithm 2 (Zolo-SVD):
     2.  H = V diag(w) V^T  (eigh; the ELPA role)
     3.  U = Q_p V,  sigma = w  (descending)
 
-Port of the main-path registrations of ``repro/core/svd.py`` —
-``zolo_static``, ``zolo_cuda`` (the counterpart of ``zolo_pallas``), the
-``svd`` oracle and ``eigh`` — and of ``svd_residual``/``orthogonality``.
+Port of the dense single-device registrations of ``repro/core/svd.py`` —
+``zolo`` (dynamic), ``zolo_static``, ``zolo_cuda`` and
+``zolo_cuda_dynamic`` (the counterparts of ``zolo_pallas`` and
+``zolo_pallas_dynamic``), the ``svd`` oracle and ``eigh`` — and of
+``svd_residual``/``orthogonality``.
 The assembly itself lives in :mod:`repro_torch.solver.planner`.
 """
 
@@ -101,11 +103,29 @@ def _zolo_static_planfn(res):
             "qr_iters": res.qr_iters if res.qr_iters is not None else 1}
 
 
+def _zolo_dynamic_planfn(res):
+    """Shared by the dynamic Zolo bindings (``zolo``, ``zolo_cuda_dynamic``):
+    an explicit l0 (or plan-time estimate) short-circuits the run-time
+    bound, and the config's ``qr_mode`` knob picks the peeled first
+    iteration (the drivers' ``first_mode``)."""
+    kw = {}
+    if res.r is not None:
+        kw["r"] = res.r
+    if res.l0 is not None:
+        kw["l"] = res.l0
+    if res.max_iters is not None:
+        kw["max_iters"] = res.max_iters
+    if res.qr_mode is not None:
+        kw["first_mode"] = res.qr_mode
+    return kw
+
+
 def _cuda_planfn(inner):
-    """Wrap ``zolo_cuda``'s plan_fn with its precision checks: an f64
-    plan raises (the kernels accumulate in f32 — use ``zolo_static``),
-    and a sub-f64 plan whose kappa hint exceeds the dtype's
-    :data:`CUDA_KAPPA_ENVELOPE` cap raises."""
+    """Wrap a kernel binding's plan_fn with its precision checks: an f64
+    plan raises (the kernels accumulate in f32 — use ``zolo_static`` or
+    ``zolo``), and a sub-f64 plan whose kappa hint exceeds the dtype's
+    :data:`CUDA_KAPPA_ENVELOPE` cap raises.  A dynamic plan without a
+    kappa or l0 hint passes: its conditioning exists only at run time."""
 
     @functools.wraps(inner)
     def planfn(res):
@@ -114,7 +134,7 @@ def _cuda_planfn(inner):
                 f"{res.method!r} runs f32-accumulating kernels; an "
                 f"{_registry.dtype_name(res.dtype)} plan would silently "
                 f"lose the precision it asked for — plan it with "
-                f"'zolo_static'")
+                f"'zolo_static' (or 'zolo', dynamic)")
         cap = _cuda_kappa_cap(res.dtype)
         if cap is not None and res.kappa is not None \
                 and float(res.kappa) > cap:
@@ -128,6 +148,10 @@ def _cuda_planfn(inner):
     return planfn
 
 
+register_polar("zolo", dynamic=True, flops_fn=_zolo_flops,
+               plan_fn=_zolo_dynamic_planfn,
+               description="dynamic Zolo-PD, run-time coefficients, plain "
+                           "torch ops")(_zolo.zolo_pd)
 register_polar("zolo_static", flops_fn=_zolo_flops,
                plan_fn=_zolo_static_planfn,
                description="precomputed-schedule Zolo-PD, plain torch ops")(
@@ -140,6 +164,15 @@ register_polar("zolo_cuda", flops_fn=_zolo_cuda_flops,
                            "kernels (fused Gram + r-term combine; plain "
                            "versions on a CPU tensor)")(
     _zolo_cuda.zolo_pd_cuda)
+register_polar("zolo_cuda_dynamic", dynamic=True, flops_fn=_zolo_cuda_flops,
+               plan_fn=_cuda_planfn(_zolo_dynamic_planfn), fallback="zolo",
+               kappa_max_f32=CUDA_F32_KAPPA_MAX,
+               kappa_envelope=CUDA_KAPPA_ENVELOPE,
+               description="dynamic Zolo-PD on the Hopper kernels "
+                           "(run-time coefficients; K1 and K2 inside the "
+                           "residual-stopped loop; plain versions on a CPU "
+                           "tensor)")(
+    _zolo_cuda.zolo_pd_cuda_dynamic)
 
 
 @register_polar("svd", is_oracle=True,

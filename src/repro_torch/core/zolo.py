@@ -1,17 +1,21 @@
 """Zolo-PD: polar decomposition via composed Zolotarev functions.
 
-Port of the static part of ``repro/core/zolo.py`` (paper Algorithm 1):
-one iteration body, :func:`zolo_iteration`, under the static schedule
-source :func:`run_schedule`, with its hot loops routed through an
-injectable :class:`ZoloOps` bundle — the default plain torch ops here,
-the hand-written CUDA kernels in :mod:`repro_torch.core.zolo_cuda`.
+Port of ``repro/core/zolo.py`` (paper Algorithm 1): one iteration body,
+:func:`zolo_iteration`, under two schedule sources — the static
+precomputed schedule (:func:`run_schedule`) and the dynamic run-time
+coefficients with a residual stop (:func:`run_dynamic`) — with its hot
+loops routed through an injectable :class:`ZoloOps` bundle: the default
+plain torch ops here, the hand-written CUDA kernels in
+:mod:`repro_torch.core.zolo_cuda`.
 
 Within one address space the Gram product ``G = X^T X`` is computed once
 per iteration and shared by the r shifted factorizations
 ``Z_j = G + c_{2j-1} I`` (Gram sharing).  The first iteration uses the
 shifted CholeskyQR2 of ``[X; sqrt(c) I]``; the rest the shared-Gram
-Cholesky term.  The dynamic schedule source (``run_dynamic``/``zolo_pd``)
-and the structured Householder term belong to later slices.
+Cholesky term.  The structured Householder term (the reference's
+``core/structured_qr.py``) belongs to a later slice: asking for it, or a
+dynamic ``first_mode="auto"`` that lands in its regime, raises
+``NotImplementedError``.
 
 Differences from the JAX reference, each deliberate:
 
@@ -28,6 +32,8 @@ Differences from the JAX reference, each deliberate:
   combine kernels read — without a copy.
 * The ``(r, ...)`` broadcast of X before the solves materialises in
   torch (one (r, n, m) copy per iteration); it counts in peak memory.
+* The dynamic loop is a host ``while`` loop, not a ``lax.while_loop``:
+  see :func:`run_dynamic`.
 """
 
 from __future__ import annotations
@@ -225,9 +231,11 @@ def zolo_iteration(x, c_odd, a, mhat, *, mode: str = "chol",
         # combine sees one pre-summed term with unit weight
         t = term_sum_cholqr2(x, c_odd, a, ops=ops)
     elif mode == "householder":
+        # also the dynamic "auto" first iteration below l0 = 10 sqrt(eps)
         raise NotImplementedError(
-            "qr_mode='householder' (the structured Householder term) is "
-            "not yet ported to repro_torch; use 'cholqr2' or 'chol'")
+            "qr_mode='householder' (the structured Householder QR, "
+            "repro/core/structured_qr.py) is not yet ported to repro_torch; "
+            "use 'cholqr2' or 'chol'")
     else:
         _validate_iter_mode("mode", mode)
     one = torch.ones((1,), dtype=_kref.accum_dtype(x.dtype), device=x.device)
@@ -247,6 +255,115 @@ def run_schedule(x, c_odd, a_wts, mhats, *, qr_mode: str = "cholqr2",
         x = zolo_iteration(x, c_odd[i], a_wts[i], mhats[i], mode=mode,
                            ops=ops)
     return x
+
+
+def _residual(ops: ZoloOps, x_new, x, dtype):
+    """||X_new - X||_F / ||X_new||_F through ``ops.fnorm_pair`` (one fused
+    reduction for both norms)."""
+    nrm = ops.fnorm_pair(x_new - x, x_new)
+    return nrm[0] / torch.clamp(nrm[1], min=torch.finfo(dtype).tiny)
+
+
+def run_dynamic(x0, l0, r: int, *, eps: float, max_iters: int = 8,
+                first_mode: str = "auto", ops: ZoloOps = DEFAULT_OPS,
+                allow_householder: bool = True):
+    """THE dynamic schedule source: Zolotarev coefficients computed at
+    run time from the running lower bound (on the device, in ``l0``'s
+    dtype), so one code path serves any conditioning.
+
+    The *first* iteration is peeled off and picks its factorization by
+    stability regime (the paper's QR-first policy):
+
+      l0 <  10 sqrt(eps)  -> structured Householder QR (not yet ported)
+      l0 <  0.05          -> shifted CholeskyQR2
+      else                -> shared-Gram Cholesky
+
+    ``first_mode`` is "auto" (the rule above), "householder", "cholqr2"
+    or "chol".  ``allow_householder=False`` substitutes the shifted
+    CholeskyQR2 term in the extreme regime, as the reference defines it;
+    with the default, a first iteration in that regime raises
+    ``NotImplementedError`` (from :func:`zolo_iteration`) rather than
+    quietly substituting.  The rest
+    are shared-Gram Cholesky iterations, stopped by the paper's residual
+    rule ||X_k+1 - X_k||_F / ||X_k+1||_F <= max(eps^(1/(2r+1)),
+    4 eps(iterate)) or by ``max_iters``.
+
+    Loop: a host ``while`` loop that reads the residual once per
+    iteration (one device sync each), chosen over a fixed trip of
+    ``max_iters`` with frozen state: it runs exactly the reference's
+    iterations and no more, and one scalar read per iteration is nothing
+    beside an iteration's factorizations.  The "auto" branch is decided
+    on the host from ``l0`` the same way (the reference's ``lax.switch``
+    index).  Returns ``(x, l_final, iterations, residual, converged)``;
+    ``converged`` records whether the residual rule was met.
+    """
+    dtype = x0.dtype
+    tol = max(eps ** (1.0 / (2 * r + 1)), 4.0 * torch.finfo(dtype).eps)
+    hh_thresh = 10.0 * eps ** 0.5
+    qr_thresh = 0.05
+
+    # --- peeled first iteration ------------------------------------------
+    c0, a0, m0 = _coeffs.zolo_coeffs(l0, r)
+    mode = first_mode
+    if first_mode == "auto":
+        l0_host = float(l0)
+        mode = ("chol" if l0_host >= qr_thresh else
+                "cholqr2" if l0_host >= hh_thresh else
+                "householder" if allow_householder else "cholqr2")
+    c_sel, a_sel = ops.coeff_select(c0[0::2], a0)
+    x1 = zolo_iteration(x0, c_sel, a_sel, m0, mode=mode, ops=ops)
+    res = _residual(ops, x1, x0, dtype)
+    l = torch.clamp(_coeffs.zolo_l_update(l0, c0, m0), 0.0, 1.0 - eps)
+
+    # --- remaining iterations: shared-Gram Cholesky ----------------------
+    x, k = x1, 1
+    while k < max_iters and float(res) > tol:  # NaN stops, unconverged
+        c, av, mh = _coeffs.zolo_coeffs(l, r)
+        c_sel, a_sel = ops.coeff_select(c[0::2], av)
+        x_new = zolo_iteration(x, c_sel, a_sel, mh, mode="chol", ops=ops)
+        res = _residual(ops, x_new, x, dtype)
+        l = torch.clamp(_coeffs.zolo_l_update(l, c, mh), 0.0, 1.0 - eps)
+        x, k = x_new, k + 1
+    return x, l, k, res, res <= tol
+
+
+def zolo_pd(a, r: int = 3, *, alpha=None, l=None, max_iters: int = 8,
+            eps: Optional[float] = None, want_h: bool = True,
+            first_mode: str = "auto", ops: Optional[ZoloOps] = None):
+    """Dynamic Zolo-PD (paper Alg. 1) of ``a`` with m >= n — the (dynamic
+    schedule, ``ops``) binding of the engine; it scales itself.
+
+    ``alpha`` (default: the guaranteed ``sigma_max_upper`` bound) scales
+    A to X0 = A / alpha; ``l`` (default: ``sigma_min_lower_qr(X0)``, in
+    the iterate's f32-or-better dtype) is the lower bound the
+    coefficients start from, clamped to [4 eps, 1 - eps].  A given ``l``
+    (a python number) is taken as float64.  ``eps`` defaults to the
+    accumulation precision's (f32 for a bf16 iterate).  H is formed from
+    the unscaled ``a``.  Returns (Q, H or None, PolarInfo)."""
+    _validate_iter_mode("first_mode", first_mode, extra=("auto",))
+    ops = DEFAULT_OPS if ops is None else ops
+    dtype = a.dtype
+    eps = eps or torch.finfo(_kref.accum_dtype(dtype)).eps
+    alpha = _norms.sigma_max_upper(a) if alpha is None else \
+        torch.as_tensor(alpha, device=a.device)
+    x0 = a / alpha.to(dtype)
+    if l is None:
+        l0 = _norms.sigma_min_lower_qr(x0)
+    elif isinstance(l, torch.Tensor):
+        l0 = l.to(a.device)
+    else:
+        l0 = torch.tensor(float(l), dtype=torch.float64, device=a.device)
+    l0 = torch.clamp(l0, 4 * eps, 1.0 - eps)
+    x, l_fin, k, res, conv = run_dynamic(x0, l0, r, eps=eps,
+                                         max_iters=max_iters,
+                                         first_mode=first_mode, ops=ops)
+    info = PolarInfo(
+        iterations=torch.tensor(k, dtype=torch.int32, device=a.device),
+        residual=res, l_final=l_fin, converged=conv,
+        l_init=l0.to(torch.float32))
+    if want_h:
+        return x, form_h(x, a), info
+    return x, None, info
 
 
 def zolo_pd_static(a, *, l0: Optional[float] = None,

@@ -1,17 +1,19 @@
-"""Kernel-backed Zolo-PD: the ``zolo_cuda`` registry backend.
+"""Kernel-backed Zolo-PD: the ``zolo_cuda`` and ``zolo_cuda_dynamic``
+registry backends.
 
-Port of ``repro/core/zolo_pallas.py`` (static half): binds the static
-schedule source of the one Zolotarev engine (:mod:`repro_torch.core.zolo`)
-to a :class:`~repro_torch.core.zolo.ZoloOps` bundle whose two hot loops
-are the hand-written Hopper kernels:
+Port of ``repro/core/zolo_pallas.py``: binds both schedule sources of the
+one Zolotarev engine (:mod:`repro_torch.core.zolo`) — the static
+precomputed schedule (:func:`zolo_pd_cuda`) and the dynamic run-time
+coefficients (:func:`zolo_pd_cuda_dynamic`) — to a
+:class:`~repro_torch.core.zolo.ZoloOps` bundle whose two hot loops are
+the hand-written Hopper kernels:
 
 * :func:`repro_torch.kernels.ops.gram`         — K1, fused shifted Gram.
 * :func:`repro_torch.kernels.ops.polar_update` — K2, fused r-term combine.
 
 On a CUDA iterate each op launches its kernel (or raises); on a CPU
 iterate the same ops run the kernels' plain PyTorch versions, which is
-how the CPU tests exercise this backend.  The dynamic binding
-(``zolo_pd_pallas_dynamic``) waits for the dynamic engine.
+how the CPU tests exercise these backends.
 """
 
 from __future__ import annotations
@@ -74,3 +76,15 @@ def zolo_pd_cuda(a, *, l0: Optional[float] = None, r: Optional[int] = None,
         qr_mode=qr_mode, qr_iters=qr_iters,
         hermitian_source=hermitian_source, schedule=schedule,
         ops=cuda_zolo_ops())
+
+
+def zolo_pd_cuda_dynamic(a, r: int = 3, *, alpha=None, l=None,
+                         max_iters: int = 8, eps=None, want_h: bool = True,
+                         first_mode: str = "auto"):
+    """Dynamic Zolo-PD (the contract of
+    :func:`repro_torch.core.zolo.zolo_pd`) with the iteration's Gram
+    products and r-term combine on K1 and K2 inside the residual-stopped
+    loop.  Returns (Q, H or None, PolarInfo)."""
+    return _zolo.zolo_pd(a, r, alpha=alpha, l=l, max_iters=max_iters,
+                         eps=eps, want_h=want_h, first_mode=first_mode,
+                         ops=cuda_zolo_ops())

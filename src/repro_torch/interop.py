@@ -21,7 +21,8 @@ from repro_torch.solver.config import SvdConfig
 from repro_torch.solver.planner import SvdPlan
 
 # reference backend name -> its counterpart in the port
-METHOD_NAMES = {"zolo_pallas": "zolo_cuda"}
+METHOD_NAMES = {"zolo_pallas": "zolo_cuda",
+                "zolo_pallas_dynamic": "zolo_cuda_dynamic"}
 
 
 def svd_config_from_dict(d: dict) -> SvdConfig:

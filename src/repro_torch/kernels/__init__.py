@@ -6,6 +6,13 @@
                         ``Y = mhat (xw X + sum_j a_j T_j)``
                         (``csrc/grouped_combine.cu``); ``polar_update`` is
                         its xw = 1 form.
+* ``matmul``          — K3, tiled matmul ``C = alpha A @ B`` with f32
+                        accumulation (``csrc/matmul.cu``); off the solver
+                        path, as in the reference: only ``ops.matmul``
+                        reaches it.
+* ``flash_attention`` — K4, causal flash attention over (b, s, h, d)
+                        (``csrc/flash_attention.cu``); reached through
+                        ``ops.flash_attention``.
 
 ``ops`` holds the public wrappers: a CPU tensor goes to the plain
 version in ``ref``, a CUDA tensor launches the kernel or raises.

@@ -23,13 +23,15 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gram", "grouped_combine")
+SOURCES = ("gram", "grouped_combine", "matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of every exported entry point (restype is int: the
 # cudaGetLastError() code)
 SIGNATURES = {
@@ -39,6 +41,14 @@ SIGNATURES = {
     },
     "grouped_combine": {
         "zolo_grouped_combine": (_I, _I, _P, _P, _P, _LL, _I, _P, _P, _P),
+    },
+    "matmul": {
+        "zolo_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
+                        _F, _P, _P),
+    },
+    "flash_attention": {
+        "zolo_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _LLP,
+                                 _F, _P),
     },
 }
 

@@ -13,8 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.gram import gram_kernel_call
 from repro_torch.kernels.grouped_combine import grouped_combine_kernel_call
+from repro_torch.kernels.matmul import matmul_kernel_call
 from repro_torch.kernels.polar_update import polar_update_kernel_call
 
 
@@ -34,6 +36,13 @@ def gram(a: torch.Tensor, c=0.0) -> torch.Tensor:
     return gram_kernel_call(a, c)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor, alpha=1.0) -> torch.Tensor:
+    """C = alpha * A @ B with f32 accumulation, returned in f32."""
+    if _on_cpu(a):
+        return ref.matmul_ref(a, b, alpha)
+    return matmul_kernel_call(a, b, alpha)
+
+
 def polar_update(x, t, a, mhat):
     """X2 = mhat * (X + sum_j a_j T_j), in X's dtype."""
     if _on_cpu(x):
@@ -47,3 +56,13 @@ def grouped_combine(x, t, a, mhat, xw=1.0):
     if _on_cpu(x):
         return ref.grouped_combine_ref(x, t, a, mhat, xw)
     return grouped_combine_kernel_call(x, t, a, mhat, xw)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of (b, s, h, d) q, k, v (GQA expanded), scale
+    1/sqrt(d), returned in q's dtype.  Windows and sq != skv are not this
+    op's: call ``ref.flash_attention_ref`` for those."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=True).to(q.dtype)
+    return flash_attention_kernel_call(q, k, v)

@@ -13,6 +13,8 @@ products.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Ridge floor multiplier for a positive Gram shift in sub-f64
@@ -80,3 +82,44 @@ def polar_update_ref(x: torch.Tensor, t: torch.Tensor, a,
     """X2 = mhat * (X + sum_j a_j T_j): :func:`grouped_combine_ref` with
     xw = 1 (the reference's f32-only oracle, widened to f32-or-better)."""
     return grouped_combine_ref(x, t, a, mhat, 1.0)
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor, alpha=1.0) -> torch.Tensor:
+    """C = alpha * (A @ B), returned in f32 (the reference's ``matmul_ref``).
+
+    Sub-f32 operands are widened to f32 *before* the product (exact for
+    bf16), so this is f32 accumulation of the same products the kernel
+    takes; alpha multiplies the finished product.  f64 operands multiply
+    in f64 and round to f32 once."""
+    acc = accum_dtype(torch.promote_types(a.dtype, b.dtype))
+    c = (a.to(acc) @ b.to(acc)).to(torch.float32)
+    return torch.as_tensor(alpha, dtype=torch.float32, device=c.device) * c
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale=None,
+                        window=None) -> torch.Tensor:
+    """Attention over (b, s, h, d) tensors, returned in f32 (the
+    reference's ``flash_attention_ref``).
+
+    q is (b, sq, h, d); k and v are (b, skv, h, d).  Query position i sees
+    key j iff j <= i + (skv - sq) (when ``causal``) and, with a window w,
+    j > i + (skv - sq) - w.  The scale defaults to 1/sqrt(d).  Scores,
+    softmax and the PV product are f32, with bf16 inputs widened before
+    the products; a fully masked row gives NaN, as the reference's does."""
+    f32 = torch.float32
+    sq, d = q.shape[1], q.shape[3]
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))

@@ -2,8 +2,8 @@
 
 Port of ``repro/solver/config.py`` with the same fields, defaults and
 validation.  Values that only the not-yet-ported slices give meaning to
-raise ``NotImplementedError`` naming what is missing: ``mode`` "dynamic"
-and "grouped", ``l0_policy="runtime"`` and ``compute_dtype``.
+raise ``NotImplementedError`` naming what is missing: ``mode="grouped"``
+and ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -23,23 +23,30 @@ class SvdConfig:
     method       registry polar backend name, or "auto" (capability flags
                  + per-spec ``flops_fn`` cost model pick the cheapest).
     eig_method   registry eigensolver for the H stage of Algorithm 2.
-    mode         "static" or "auto" (follows the backend's nature);
-                 "dynamic" and "grouped" are not yet ported.
+    mode         "static" (precomputed schedule), "dynamic" (run-time
+                 coefficients and a residual stop), or "auto": dynamic
+                 when ``l0_policy`` is "runtime", else static; with an
+                 explicit method, "auto" follows that backend's nature.
+                 "grouped" is not yet ported.
     r            Zolotarev order; None picks it from the conditioning per
                  paper Table 1 (``choose_r``).
     l0           lower bound on sigma_min of the (pre-scaled) input.
-    l0_policy    "given" (use ``l0``) or "estimate_at_plan"
-                 (``l0 = 0.9 / kappa``); "runtime" is not yet ported.
+    l0_policy    "given" (use ``l0``), "estimate_at_plan"
+                 (``l0 = 0.9 / kappa``) or "runtime" (a dynamic backend
+                 estimates the bound on the device; ``l0`` must be None).
     kappa        condition-number hint (auto scoring, r choice, l0).
     max_iters    schedule length cap; None keeps the backend default.
     qr_mode      first-iteration factorization ("cholqr2" | "chol";
-                 "householder" is not yet ported); None: "cholqr2".
+                 "householder" is not yet ported); None: the backend's
+                 default ("cholqr2" static, "auto" dynamic — whose
+                 Householder regime, l0 < 10 sqrt(eps), raises).
     qr_iters     how many leading iterations use ``qr_mode`` (default 1).
     nb           block size for a block-Jacobi eigensolver.
-    scale        pre-scaling by the plan: "power" (1.05x power-iteration
-                 estimate, the default), "bound" (guaranteed
-                 sqrt(norm1 * norminf) cap) or "none" (the caller
-                 guarantees sigma_max <= 1).
+    scale        pre-scaling by the plan for precomputed-schedule
+                 backends (dynamic ones scale themselves): "power"
+                 (1.05x power-iteration estimate, the default), "bound"
+                 (guaranteed sqrt(norm1 * norminf) cap) or "none" (the
+                 caller guarantees sigma_max <= 1).
     compute_dtype  not yet ported (must stay None).
     extra        extra backend kwargs as a sorted tuple of (name, value)
                  pairs (hashable passthrough).
@@ -71,14 +78,10 @@ class SvdConfig:
         if self.l0_policy == "runtime" and self.l0 is not None:
             raise ValueError("l0_policy='runtime' estimates the bound "
                              "in-graph; leave l0=None (or use 'given')")
-        if self.mode in ("dynamic", "grouped"):
+        if self.mode == "grouped":
             raise NotImplementedError(
-                f"mode={self.mode!r} is not yet ported to repro_torch "
-                f"(the dense static slice only)")
-        if self.l0_policy == "runtime":
-            raise NotImplementedError(
-                "l0_policy='runtime' needs the dynamic engine, which is "
-                "not yet ported to repro_torch")
+                "mode='grouped' is not yet ported to repro_torch (the "
+                "dense single-device slices only)")
         if self.compute_dtype is not None:
             raise NotImplementedError(
                 "compute_dtype is not yet ported to repro_torch")

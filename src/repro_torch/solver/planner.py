@@ -13,8 +13,11 @@ schedule are built once per (config, shape, dtype, device) — and its
 counters: ``cache_stats()`` reports hits, misses and evictions of the
 LRU (128 entries; pinned plans are exempt).
 
-Plans run on the CUDA card unless ``device="cpu"`` is passed.  Not yet
-ported: ``audit()``, ``svd_verified()``, grouped and dynamic modes and
+Modes "static" and "dynamic" resolve as in the reference (the mode and
+capability rules of ``repro/solver/planner.py``, without a mesh);
+dynamic backends scale themselves, so the plan's prescale is skipped for
+them.  Plans run on the CUDA card unless ``device="cpu"`` is passed.  Not
+yet ported: ``audit()``, ``svd_verified()``, the grouped mode and
 ``compute_dtype`` (each raises ``NotImplementedError``).
 """
 
@@ -123,17 +126,35 @@ _KNOB_CONSUMED_AS = {
 }
 
 
-def _static_candidate(spec) -> bool:
-    # auto never picks oracles or baselines; only static backends run here
-    return not (spec.is_oracle or spec.baseline or spec.dynamic
-                or spec.requires_mesh)
+def _capability_ok(spec, mode: str, runtime_l0: bool = False) -> bool:
+    # auto never picks reference oracles or comparison baselines — they
+    # stay reachable by explicit method= only
+    if spec.is_oracle or spec.baseline or spec.requires_mesh:
+        return False
+    if runtime_l0 and not spec.dynamic:
+        # the run-time bound needs a run-time-conditioning backend
+        return False
+    return spec.dynamic if mode == "dynamic" else not spec.dynamic
 
 
-def _select_method(m, n, r_hint, kappa, dtype, device):
+def _dynamic_methods() -> list:
+    """Registered dynamic backends that run without a mesh."""
+    return [n for n in _registry.list_polar()
+            if _registry.get_polar(n).dynamic
+            and not _registry.get_polar(n).requires_mesh]
+
+
+def _select_method(mode, m, n, r_hint, kappa, dtype, device,
+                   runtime_l0=False):
     """method="auto": capability filter, then cheapest by ``flops_fn``
     (ties broken by name)."""
     cands = [_registry.get_polar(name) for name in _registry.list_polar()]
-    cands = [s for s in cands if _static_candidate(s)]
+    cands = [s for s in cands if _capability_ok(s, mode, runtime_l0)]
+    if not cands:
+        raise ValueError(f"no registered polar backend supports "
+                         f"mode={mode!r}" +
+                         (" with l0_policy='runtime'" if runtime_l0
+                          else ""))
 
     def score(spec):
         if spec.flops_fn is None:
@@ -145,16 +166,41 @@ def _select_method(m, n, r_hint, kappa, dtype, device):
     return min(cands, key=score)
 
 
+def _validate_capability(spec, mode: str, config: SvdConfig) -> None:
+    if spec.requires_mesh:
+        raise NotImplementedError(
+            f"polar method {spec.name!r} runs grouped only, and the "
+            f"grouped mode is not yet ported to repro_torch")
+    if mode == "dynamic" and not spec.dynamic and not spec.is_oracle:
+        raise ValueError(
+            f"polar method {spec.name!r} has a precomputed schedule; "
+            f"mode='dynamic' needs a run-time-conditioning backend "
+            f"(registered dynamic methods: {_dynamic_methods()})")
+    if mode == "static" and spec.dynamic and config.mode != "auto":
+        raise ValueError(
+            f"polar method {spec.name!r} is a dynamic (run-time "
+            f"conditioning) backend; mode='static' needs a precomputed "
+            f"schedule — use mode='dynamic' or 'auto'")
+    if config.l0_policy == "runtime" and not spec.dynamic:
+        raise ValueError(
+            f"l0_policy='runtime' estimates the bound on the device, "
+            f"which needs a dynamic backend; {spec.name!r} is static "
+            f"(registered dynamic methods: {_dynamic_methods()})")
+
+
 def _resolve(config: SvdConfig, shape, dtype, device):
     m, n = shape
     explicit = (None if config.method == "auto"
                 else _registry.get_polar(config.method))
     eig_spec = _registry.get_eig(config.eig_method)  # fail fast on typos
-    if explicit is not None and (explicit.dynamic or explicit.requires_mesh):
-        raise NotImplementedError(
-            f"polar method {explicit.name!r} needs a mode that is not yet "
-            f"ported to repro_torch")
-    mode = "static"
+    mode = config.mode
+    if mode == "auto":
+        if explicit is not None:
+            mode = "dynamic" if explicit.dynamic else "static"
+        elif config.l0_policy == "runtime":
+            mode = "dynamic"
+        else:
+            mode = "static"
 
     l0 = config.l0
     if l0 is None and config.l0_policy == "estimate_at_plan":
@@ -174,8 +220,10 @@ def _resolve(config: SvdConfig, shape, dtype, device):
     if explicit is not None:
         spec = explicit
     else:
-        spec = _select_method(m, n, r or _coeffs.choose_r(kappa_eff),
-                              kappa_eff, dtype, device)
+        spec = _select_method(mode, m, n, r or _coeffs.choose_r(kappa_eff),
+                              kappa_eff, dtype, device,
+                              runtime_l0=(config.l0_policy == "runtime"))
+    _validate_capability(spec, mode, config)
 
     res = PlanResolution(method=spec.name, mode=mode,
                          eig_method=eig_spec.name, m=m, n=n, dtype=dtype,
@@ -313,8 +361,10 @@ class SvdPlan:
         a_work, transposed = _zolo.polar_canonical(a)
         out_dtype = a_work.dtype
         alpha = None
-        if self.config.scale != "none" and not self._spec.is_oracle:
-            # precomputed-schedule backends assume sigma_max <= 1
+        if (self.config.scale != "none" and not self._spec.dynamic
+                and not self._spec.is_oracle):
+            # precomputed-schedule backends assume sigma_max <= 1; dynamic
+            # backends estimate their own alpha on the device
             a_work, alpha = self._prescale(a_work)
         q, h, info = self._spec.fn(a_work, **kw)
         return q, h, info, transposed, alpha, out_dtype
@@ -394,8 +444,13 @@ class SvdPlan:
 
     def svd(self, a):
         """A = U diag(s) V^H (paper Alg. 2), s descending."""
+        u, s, vh, _ = self.svd_info(a)
+        return u, s, vh
+
+    def svd_info(self, a):
+        """``svd`` plus the polar backend's PolarInfo: (u, s, vh, info)."""
         self._check(a)
-        return self._svd_impl(a)
+        return self._svd_impl_info(a)
 
     def polar(self, a, want_h: bool = True):
         """(q, h, info) with A ~= Q H."""

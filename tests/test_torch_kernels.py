@@ -1,11 +1,16 @@
-"""The port's kernels K1 (fused shifted Gram) and K2 (r-term combine).
+"""The port's kernels K1 (fused shifted Gram), K2 (r-term combine), K3
+(tiled matmul) and K4 (causal flash attention).
 
 On the CPU every wrapper runs its plain PyTorch version; those are held
 against the reference's jnp oracles (``repro.kernels.ref``) and against
 the Pallas kernels in interpret mode (``repro.kernels.ops`` off-TPU), on
 the same inputs made with numpy.  Tolerances: 1e-5 of max|result| in f32
 (the summation order differs); for a bf16 output, one bf16 ulp plus the
-f32 sums' forward error bound (``_sum_bound``), elementwise.
+f32 sums' forward error bound (``_sum_bound``), elementwise.  K4 in bf16,
+elementwise (``_flash_bf16_bound``): 2^-8 (P|V|)_ij for the rounding of P
+to bf16 before the PV product (the Pallas body and the CUDA kernel do
+it, the plain version keeps P in f32; 2^-8 relative per weight), 2^-8 |o|
+for each bf16 output compared, and 1e-5 max|v| for the f32 arithmetic.
 
 The ``gpu``-marked tests launch the CUDA kernels and hold them against
 the plain versions; they need a card and skip without one.  They need
@@ -22,8 +27,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import gram as kgram  # noqa: E402
 from repro_torch.kernels import grouped_combine as kcomb  # noqa: E402
+from repro_torch.kernels import matmul as kmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 F32_REL = 1e-5
@@ -87,6 +94,18 @@ def _sum_bound(x, t, a, mhat, xw):
     a = np.abs(np.asarray(a, np.float64))
     mag = abs(xw) * np.abs(x) + np.einsum("j,jmn->mn", a, np.abs(t))
     return (2 * len(a) + 2) * np.finfo(np.float32).eps * abs(mhat) * mag
+
+
+def _flash_bf16_bound(q, k, v, want, outputs):
+    """Elementwise bound on bf16 flash attention with P rounded to bf16
+    before PV, against the f32-P plain version ``want`` (f32): 2^-8
+    (P|V|)_ij (P|V| is the plain version on |v|), 2^-8 |o| for each of
+    ``outputs`` bf16 outputs compared (|o| <= |want| + 2^-8 P|V|), and
+    F32_REL max|v| for the f32 arithmetic."""
+    u = 2.0 ** -8
+    pv = _np(ref.flash_attention_ref(q, k, v.abs()))
+    return ((u + u * u) * pv + outputs * u * np.abs(_np(want))
+            + F32_REL * np.max(np.abs(_np(v))))
 
 
 def _floor(g):
@@ -196,12 +215,83 @@ def test_combine_plain_mixed_dtypes_accumulate_in_f32(rng):
     _assert_bf16_ulp(got, want, _sum_bound(xb, t, [0.5, -2.0], 1.5, 1.0))
 
 
+# --- K3: tiled matmul -------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (130, 70, 200),
+                                   (37, 129, 61)])
+def test_matmul_plain_matches_reference_and_pallas(m, k, n, dtype, rng, jx):
+    a_t, a_j = _pair(jx, rng.standard_normal((m, k)), dtype)
+    b_t, b_j = _pair(jx, rng.standard_normal((k, n)), dtype)
+    got = ops.matmul(a_t, b_t, 1.5)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    # f32 sums of the same (exact for bf16) products in another order
+    _assert_rel(got, jx.ref.matmul_ref(a_j, b_j, 1.5))
+    _assert_rel(got, jx.ops.matmul(a_j, b_j, alpha=1.5))
+
+
+def test_matmul_plain_mixed_dtypes_and_alpha_after_the_sum(rng, jx):
+    # a bf16 A and an f32 B: the reference aligns to the wider operand
+    a_t, a_j = _pair(jx, rng.standard_normal((40, 33)), "bfloat16")
+    b_t, b_j = _pair(jx, rng.standard_normal((33, 24)), "float32")
+    got = ops.matmul(a_t, b_t, torch.tensor(-0.25))
+    _assert_rel(got, jx.ref.matmul_ref(a_j, b_j, -0.25))
+    want = -0.25 * (a_t.double() @ b_t.double())
+    _assert_rel(got, want)
+
+
+# --- K4: causal flash attention ---------------------------------------------
+
+
+def _qkv(jx, rng, shape, dtype):
+    return [_pair(jx, rng.standard_normal(shape), dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [128, 100])
+def test_flash_plain_matches_reference_and_pallas(s, dtype, rng, jx):
+    # s = 100 is ragged: the Pallas wrapper falls back to one tile
+    (q_t, q_j), (k_t, k_j), (v_t, v_j) = _qkv(jx, rng, (2, s, 2, 32), dtype)
+    plain = ref.flash_attention_ref(q_t, k_t, v_t)
+    assert plain.dtype == torch.float32
+    _assert_rel(plain, jx.ref.flash_attention_ref(q_j, k_j, v_j))
+    got = ops.flash_attention(q_t, k_t, v_t)
+    assert got.dtype == q_t.dtype and got.shape == q_t.shape
+    pallas = jx.ops.flash_attention(q_j, k_j, v_j, bq=64, bk=64)
+    if dtype == "float32":
+        _assert_rel(got, pallas)
+    else:
+        # both outputs are bf16: the plain one rounds once, the Pallas
+        # one rounds P and its output
+        err = np.abs(_np(got) - _np(pallas))
+        bound = _flash_bf16_bound(q_t, k_t, v_t, plain, outputs=2)
+        assert np.all(err <= bound), np.max(err / bound)
+
+
+@pytest.mark.parametrize("kw", [{"window": 16}, {"causal": False},
+                                {"scale": 0.3}, {"window": 30, "sq": 40}])
+def test_flash_plain_full_signature_matches_reference(kw, rng, jx):
+    kw = dict(kw)
+    sq = kw.pop("sq", 96)
+    (q_t, q_j), (k_t, k_j), (v_t, v_j) = _qkv(jx, rng, (1, 96, 3, 16),
+                                              "float32")
+    got = ref.flash_attention_ref(q_t[:, :sq], k_t, v_t, **kw)
+    want = jx.ref.flash_attention_ref(q_j[:, :sq], k_j, v_j, **kw)
+    assert got.shape == (1, sq, 3, 16)
+    _assert_rel(got, want)
+
+
 def test_wrappers_refuse_devices_without_a_path():
     a = torch.empty((4, 4), device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.gram(a)
     with pytest.raises(ValueError, match="device"):
         ops.polar_update(a, a[None], torch.ones(1), 1.0)
+    with pytest.raises(ValueError, match="device"):
+        ops.matmul(a, a)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(a[None, None], a[None, None], a[None, None])
 
 
 def test_launch_wrappers_refuse_cpu_tensors():
@@ -210,8 +300,29 @@ def test_launch_wrappers_refuse_cpu_tensors():
         kgram.gram_kernel_call(a)
     with pytest.raises(ValueError, match="CUDA"):
         kcomb.grouped_combine_kernel_call(a, a[None], [1.0], 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmm.matmul_kernel_call(a, a.mT)
+    with pytest.raises(ValueError, match="CUDA"):
+        kflash.flash_attention_kernel_call(a[None, None], a[None, None],
+                                           a[None, None])
     assert kgram.gram_plain is ref.gram_ref
     assert kcomb.grouped_combine_plain is ref.grouped_combine_ref
+    assert kmm.matmul_plain is ref.matmul_ref
+    assert kflash.flash_attention_plain is ref.flash_attention_ref
+
+
+def test_build_lists_every_kernel_source():
+    from repro_torch.kernels import build
+
+    srcs = {p.stem for p in build.CSRC.glob("*.cu")}
+    assert set(build.SOURCES) == srcs == set(build.SIGNATURES)
+    assert srcs == {"gram", "grouped_combine", "matmul", "flash_attention"}
+    for name in build.SOURCES:  # every entry point is in its source
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in build.SIGNATURES[name].items():
+            assert f'extern "C" int {fn}(' in text
+            decl = text[text.index(f'extern "C" int {fn}('):]
+            assert decl[:decl.index(")")].count(",") + 1 == len(argtypes)
 
 
 # --- on the card -------------------------------------------------------------
@@ -293,3 +404,89 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="r <="):
         ops.polar_update(x, torch.ones((9, 8, 4), device=cuda), [1.0] * 9,
                          1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adt,bdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (1000, 333, 129),
+                                   (37, 1, 61)])
+@pytest.mark.parametrize("layout", ["row", "transposed"])
+def test_matmul_kernel_matches_plain(cuda, adt, bdt, m, k, n, layout):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    if layout == "row":
+        a = torch.randn((m, k), generator=gen, device=cuda).to(adt)
+        b = torch.randn((k, n), generator=gen, device=cuda).to(bdt)
+    else:  # column-major views: the kernel reads them by their strides
+        a = torch.randn((k, m), generator=gen, device=cuda).to(adt).mT
+        b = torch.randn((n, k), generator=gen, device=cuda).to(bdt).mT
+    for alpha in (1.5, torch.tensor(-0.5, device=cuda)):
+        before = kmm.launches
+        got = ops.matmul(a, b, alpha)
+        assert kmm.launches == before + 1
+        want = ref.matmul_ref(a, b, alpha)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        # f32 sums of k exact products in another order: |err| <= k eps
+        # sum |a_i b_i| |alpha|, elementwise
+        bound = (k * torch.finfo(torch.float32).eps * abs(float(alpha))
+                 * (a.float().abs() @ b.float().abs()))
+        assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [128, 100, 257])
+@pytest.mark.parametrize("d", [16, 64, 128, 120])
+def test_flash_kernel_matches_plain(cuda, dtype, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, h = 2, 3
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    before = kflash.launches
+    got = ops.flash_attention(q, k, v)
+    assert kflash.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * want.abs().max().item()
+    else:
+        diff = (got.float() - want).cpu()
+        bound = _flash_bf16_bound(q.cpu(), k.cpu(), v.cpu(), want.cpu(),
+                                  outputs=1)
+        assert np.all(np.abs(_np(diff)) <= bound)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_heads(cuda):
+    # (b, h, s, d) storage seen as (b, s, h, d): no copy is made
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((1, 4, 96, 64), generator=gen, device=cuda)
+               .transpose(1, 2) for _ in range(3))
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k3_k4_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.ones((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="takes"):
+        ops.matmul(x.double(), x.mT.double())
+    with pytest.raises(ValueError, match=r"\(m, k\) @ \(k, n\)"):
+        ops.matmul(x, x)
+    q = torch.ones((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.flash_attention(q, q[:, :4], q[:, :4])  # sq != skv
+    with pytest.raises(ValueError, match="d <="):
+        big = torch.ones((1, 4, 1, 320), device=cuda)
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="unit stride"):
+        t = torch.ones((1, 8, 2, 32), device=cuda)[..., ::2]
+        ops.flash_attention(t, t, t)

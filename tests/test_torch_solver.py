@@ -156,10 +156,12 @@ def test_auto_and_cuda_pricing_on_cpu():
 
 
 def test_not_yet_ported_values_raise():
-    for kw in ({"mode": "dynamic"}, {"mode": "grouped"},
-               {"l0_policy": "runtime"}, {"compute_dtype": "bfloat16"}):
+    for kw in ({"mode": "grouped"}, {"compute_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             S.SvdConfig(**kw)
+    # the dynamic slice is ported: these configure, they do not raise
+    assert S.SvdConfig(mode="dynamic", l0_policy="runtime").mode == \
+        "dynamic"
     with pytest.raises(ValueError, match="mode="):
         S.SvdConfig(mode="bogus")
     p = S.plan(S.SvdConfig(method="zolo_static", l0=0.1), (8, 8),
