@@ -8,25 +8,34 @@ Phases, each printed as it runs:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off.
 2. build: all four Hopper kernels from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (in parallel), and their ``-Xptxas -v`` report.
+   with ``nvcc`` (in parallel), and their ``-Xptxas -v`` report; spills
+   and serialized ``wgmma`` are flagged, and fail the run on the
+   tensor-core kernels (``matmul_bf16``, ``flash_bf16``).
 3. parity at full width: K1 (fused shifted Gram) at 11,999^2 in f32 and
    bf16 with c = 0, below and above the clamp floor, plus a ragged
    1000 x 333; K2 (r-term combine) at 11,999^2, r in {1, 4}, f32 and
    bf16, xw in {0, 1} — each against its plain PyTorch version (f32:
    max error / max|result|; bf16 output: one bf16 ulp plus the f32
-   sums' error bound, elementwise).  K3 (tiled matmul, alpha = 1.5) at
-   11,999^2 in f32 and bf16 and a ragged 1001 x 333 @ 333 x 517, each
-   driven first through ``kernels.ops.matmul`` as a path of its own
-   (counts zeroed before, read after), held elementwise to the f32 sums'
-   error bound k eps |alpha| (|A| @ |B|).  K4 (causal flash attention)
-   at one qwen3-8b layer (b = 1, s = 4,096, 32 heads of 128) in bf16 and
-   f32 and a ragged s = 4,000, the bf16 one driven first through
-   ``kernels.ops.flash_attention`` as its path (f32: max error / max|v|
-   within 1e-5; bf16: elementwise within the rounding bound of P to bf16
-   before PV, as in the Pallas body, and of the bf16 output, 2^-8 (P|V|)
-   + 2^-8 |o|, plus the f32 term).
+   sums' error bound, elementwise).  K3 (tiled matmul, alpha = 1.5) and
+   K4 (causal flash attention) each have two routes, ``simt`` and
+   ``wgmma``; each route is driven once through its ``kernels.ops``
+   entry as a path of its own (counts zeroed before, read after), and
+   every other case reads its route's counter around its own call.  K3:
+   f32 11,999^2 (simt), bf16 11,999^2 (wgmma, staged: rows of 11,999 are
+   not 16-byte aligned), bf16 12,000^2 and 4,096^2 transposed views
+   (wgmma, zero-copy, both majors), mixed f32/bf16 (simt) and ragged
+   1001 x 333 @ 333 x 517 in each, held elementwise to the f32 sums'
+   error bound k eps |alpha| (|A| @ |B|).  K4 at one qwen3-8b layer
+   (b = 1, s = 4,096, 32 heads of 128) and s = 4,000: bf16 (wgmma) in
+   (b, s, h, d) and (b, h, s, d) storage at d = 128 and 64, f32 (simt)
+   (f32: max error / max|v| within 1e-5; bf16: elementwise within the
+   rounding bound of P to bf16 before PV, as in the Pallas body, and of
+   the bf16 output, 2^-8 (P|V|) + 2^-8 |o|, plus the f32 term).
 4. kernel times (CUDA events, warm), beside the plain version, one
-   PyTorch library call computing the same function, and the bound.
+   PyTorch library call computing the same function, and the bound:
+   every route of K3 and K4 on its own; the library calls with f32 output
+   from bf16 operands (``torch.mm(..., out_dtype=torch.float32)``, for K3
+   bf16 and K1 bf16) are checked against the plain version first.
 5. main path: the paper's linverse matrix (n = 11,999, kappa = 9.06e3)
    synthesized on the card and solved through
    ``plan(SvdConfig(method="zolo_cuda", ...)).svd(a)``, with the kernel
@@ -48,8 +57,10 @@ Phases, each printed as it runs:
 8. the plain yardstick of the dynamic path, ``method="zolo"``: it
    launches no kernel, and its singular values agree with phase 7's.
 
-The line before the last is a JSON object with one record per kernel;
-the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
+The line before the last names the card and its power limit; the one
+before it is a JSON object with one record per kernel and route (K3 and
+K4: ``matmul/simt``, ``matmul/wgmma``, ``flash_attention/wgmma``,
+``flash_attention/simt``); the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line.  It also exits non-zero
 when no CUDA device is present (unless rehearsing on the CPU) and when
 run outside a checkout of the repository.  A full record is written to
@@ -72,8 +83,12 @@ KAPPA = 9.06e3      # its 2-norm condition number
 R = 4               # the paper's r for linverse
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
-                   "matmul": 0, "flash_attention": 0}
+                   "matmul": 0, "flash_attention": 0,
+                   "matmul/simt": 0, "matmul/wgmma": 0,
+                   "flash_attention/simt": 0, "flash_attention/wgmma": 0}
 MM_RAGGED = (1001, 333, 517)   # (m, k, n): no multiple of any tile
+MM_ALIGNED = 12_000  # rows of 12,000 bf16: TMA reads them as they lie
+MM_TRANSPOSED = 4096  # transposed (column-major) views: MN-major operands
 MM_ALPHA = 1.5
 # one attention layer of qwen3-8b (src/repro/configs/qwen3_8b.py): 32
 # query heads of 128, its 8 kv heads expanded to 32; b = 1, s = 4,096
@@ -92,6 +107,10 @@ ACCURACY_TOL = 1e-4  # f32 eps * sqrt(n) ~ 1.3e-5, times a small factor
 # bf16 is held elementwise by flash_bf16_bound, with this as its f32 term
 K4_TOL_F32 = 1e-5
 KERNEL_MODULES = ("gram", "grouped_combine", "matmul", "flash_attention")
+# K3 and K4 pick a route per call (kernels/matmul.py, flash_attention.py)
+ROUTED = ("matmul", "flash_attention")
+ROUTES = ("simt", "wgmma")
+WGMMA_KERNELS = ("matmul_bf16", "flash_bf16")  # their entry points' names
 
 
 def say(*parts):
@@ -190,14 +209,30 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build()
     secs = time.perf_counter() - t0
+    flags = []
     for name, path in libs.items():
         say(f"{name}: {os.path.relpath(path, HERE)}")
+        entry = None
         for line in build.PTXAS_LOG.get(name, "").splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if any(k in line for k in ("registers", "spill", "Compiling",
-                                       "smem", "bytes stack")):
+                                       "smem", "bytes stack", "warning",
+                                       "serialized")):
                 say("  " + line.strip())
+            spills = "spill stores" in line and \
+                not line.strip().startswith("0 bytes stack frame, 0 bytes")
+            if spills or "serialized" in line:
+                flags.append((name, entry or "", line.strip()))
+    for name, entry, line in flags:
+        say(f"FLAG {name}: {line} ({entry})")
     say(f"build seconds: {secs:.1f}")
-    return {"seconds": secs, "ptxas": dict(build.PTXAS_LOG)}
+    # the tensor-core kernels must neither spill nor serialize their wgmma
+    bad = [f for f in flags if "serialized" in f[2]
+           or any(k in f[1] for k in WGMMA_KERNELS)]
+    check(not bad, f"wgmma kernels spill or serialize: {bad}")
+    return {"seconds": secs, "ptxas": dict(build.PTXAS_LOG),
+            "flags": [list(f) for f in flags]}
 
 
 def kernel_modules():
@@ -209,36 +244,68 @@ def kernel_modules():
 
 
 def read_counts(counters):
-    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+    """{kernel: launches}, plus {"kernel/route": launches} for K3 and K4."""
+    counts = {}
+    for m in counters:
+        name = m.__name__.rsplit(".", 1)[-1]
+        counts[name] = m.launches
+        for route, c in getattr(m, "launches_by_route", {}).items():
+            counts[f"{name}/{route}"] = c
+    return counts
+
+
+def zero_counts(counters):
+    for mod in counters:
+        mod.launches = 0
+        for route in getattr(mod, "launches_by_route", {}):
+            mod.launches_by_route[route] = 0
 
 
 def path_run(torch, counters, fn):
     """Drive one path: every launch count set to 0 just before, read
     just after (the device synchronised in between)."""
-    for mod in counters:
-        mod.launches = 0
+    zero_counts(counters)
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return out, read_counts(counters)
 
 
-def check_path_launches(device, name, launches):
+def check_path_launches(device, name, route, launches):
+    """The path of ``name`` on ``route`` launched that kernel once, on that
+    route, and nothing else."""
     if device.type == "cuda":
         want = {k: int(k == name) for k in KERNEL_MODULES}
-        check(launches == want, f"the {name} path launched {launches}, "
-              f"expected {want}")
+        want.update({f"{k}/{r}": int(k == name and r == route)
+                     for k in ROUTED for r in ROUTES})
+        check(launches == want, f"the {name} path ({route}) launched "
+              f"{launches}, expected {want}")
 
 
-def matmul_case(torch, rows, a, b, tag, got=None):
+def route_call(device, mod, route, fn):
+    """fn() with ``mod``'s route counters read around it: on the card it
+    must launch once, on ``route``."""
+    before = dict(mod.launches_by_route)
+    out = fn()
+    delta = {r: mod.launches_by_route[r] - before[r] for r in before}
+    if device.type == "cuda":
+        check(delta == {r: int(r == route) for r in before},
+              f"{mod.__name__} launched {delta}, expected one on {route}")
+    return out
+
+
+def matmul_case(torch, device, rows, a, b, tag, route, got=None):
     """K3 against its plain version, elementwise within the f32 sums'
     forward error bound k eps |alpha| (|A| @ |B|) (two orders of k exact
-    products)."""
+    products); launched on ``route`` (checked on the card) unless ``got``
+    comes from a path run."""
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops, ref
 
     k = a.shape[1]
     if got is None:
-        got = ops.matmul(a, b, MM_ALPHA)
+        got = route_call(device, kmm, route,
+                         lambda: ops.matmul(a, b, MM_ALPHA))
     want = ref.matmul_ref(a, b, MM_ALPHA)
     diff = (got - want).abs()
     bound = (k * torch.finfo(torch.float32).eps * abs(MM_ALPHA)
@@ -246,9 +313,9 @@ def matmul_case(torch, rows, a, b, tag, got=None):
     ok = bool((diff <= bound).all())
     err = float(diff.amax())
     rel = err / float(want.abs().amax())
-    rows.append({"kernel": "matmul", "case": tag, "max_abs_err": err,
-                 "rel_err": rel})
-    say(f"K3 {tag}: max_abs_err {err:.3e} rel {rel:.3e}, within "
+    rows.append({"kernel": "matmul", "route": route, "case": tag,
+                 "max_abs_err": err, "rel_err": rel})
+    say(f"K3 {tag} [{route}]: max_abs_err {err:.3e} rel {rel:.3e}, within "
         f"k eps |alpha| (|A| @ |B|) everywhere: {ok}")
     check(ok, f"K3 {tag}")
     check(got.dtype == torch.float32, f"K3 {tag}: output {got.dtype}")
@@ -268,21 +335,26 @@ def flash_bf16_bound(torch, q, k, v, want):
             + K4_TOL_F32 * float(v.float().abs().amax()))
 
 
-def flash_case(torch, rows, q, k, v, tag, got=None):
+def flash_case(torch, device, rows, q, k, v, tag, route, got=None):
     """K4 against its plain version: f32 max error / max|v| within
-    K4_TOL_F32; bf16 elementwise within flash_bf16_bound."""
+    K4_TOL_F32; bf16 elementwise within flash_bf16_bound; launched on
+    ``route`` (checked on the card) unless ``got`` comes from a path
+    run."""
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ops, ref
 
     if got is None:
-        got = ops.flash_attention(q, k, v)
+        got = route_call(device, kflash, route,
+                         lambda: ops.flash_attention(q, k, v))
     want = ref.flash_attention_ref(q, k, v)
     diff = (got.float() - want).abs()
     err = float(diff.amax())
     rel = err / float(v.float().abs().amax())
     check(got.dtype == q.dtype and got.shape == q.shape,
           f"K4 {tag}: output {got.dtype} {tuple(got.shape)}")
-    row = {"kernel": "flash_attention", "case": tag, "max_abs_err": err,
-           "rel_err": rel}
+    row = {"kernel": "flash_attention", "route": route, "case": tag,
+           "max_abs_err": err, "rel_err": rel}
+    tag = f"{tag} [{route}]"
     if q.dtype == torch.float32:
         say(f"K4 {tag}: max_abs_err {err:.3e}, / max|v| {rel:.3e} "
             f"(tolerance {K4_TOL_F32:.3e})")
@@ -300,7 +372,8 @@ def flash_case(torch, rows, q, k, v, tag, got=None):
     check(ok, f"K4 {tag}: beyond its tolerance")
 
 
-def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged):
+def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged,
+                 mm_aligned, mm_transposed):
     from repro_torch.kernels import ops, ref
 
     say("== phase 3: kernel parity at full width")
@@ -378,53 +451,113 @@ def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged):
                 del got, want
             del x, t
 
-    # K3: its path is kernels.ops.matmul (no solver path reaches it)
+    # K3: its path is kernels.ops.matmul (no solver path reaches it), one
+    # path per route; then every case, its route's counter read around it
     counters = kernel_modules()
     paths = {}
     b32 = t32[0]
-    got, paths["matmul"] = path_run(
-        torch, counters, lambda: ops.matmul(a32, b32, MM_ALPHA))
-    say(f"kernels.ops.matmul path, f32 ({n}, {n}) @ ({n}, {n}): launches "
-        f"{paths['matmul']}")
-    check_path_launches(device, "matmul", paths["matmul"])
-    matmul_case(torch, rows, a32, b32, f"f32 {n}x{n}", got)
-    del got
-    ab, bb = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
-    matmul_case(torch, rows, ab, bb, f"bf16 {n}x{n}")
-    del ab, bb
+    bf = torch.bfloat16
+    for route, (a_, b_, tag) in (
+            ("simt", (a32, b32, f"f32 {n}x{n}")),
+            ("wgmma", (a32.to(bf), b32.to(bf), f"bf16 {n}x{n} (staged)"))):
+        got, paths[f"matmul/{route}"] = path_run(
+            torch, counters, lambda: ops.matmul(a_, b_, MM_ALPHA))
+        say(f"kernels.ops.matmul path, {tag}: launches "
+            f"{paths[f'matmul/{route}']}")
+        check_path_launches(device, "matmul", route,
+                            paths[f"matmul/{route}"])
+        matmul_case(torch, device, rows, a_, b_, tag, route, got)
+        del got, a_, b_
+    na, nt = mm_aligned, mm_transposed
+    a = torch.randn((na, na), generator=gen, device=device).to(bf)
+    b = torch.randn((na, na), generator=gen, device=device).to(bf)
+    matmul_case(torch, device, rows, a, b,
+                f"bf16 {na}x{na} (row-major, zero-copy)", "wgmma")
+    at, bt = a[:nt, :nt].contiguous().mT, b[:nt, :nt].contiguous().mT
+    del a, b
+    matmul_case(torch, device, rows, at, bt,
+                f"bf16 {nt}x{nt} (transposed views, zero-copy)", "wgmma")
+    matmul_case(torch, device, rows, at.mT, bt,
+                f"bf16 {nt}x{nt} (row-major A, transposed B)", "wgmma")
+    matmul_case(torch, device, rows, at.float(), bt,
+                f"f32/bf16 {nt}x{nt} (mixed)", "simt")
+    del at, bt
     mm, kk, nn = mm_ragged
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    for dt, tag, route in ((torch.float32, "f32", "simt"),
+                           (bf, "bf16 (staged)", "wgmma")):
         a = torch.randn((mm, kk), generator=gen, device=device).to(dt)
         b = torch.randn((kk, nn), generator=gen, device=device).to(dt)
-        matmul_case(torch, rows, a, b, f"{tag} ({mm}, {kk}) @ ({kk}, {nn})")
+        matmul_case(torch, device, rows, a, b,
+                    f"{tag} ({mm}, {kk}) @ ({kk}, {nn})", route)
+    matmul_case(torch, device, rows, a, b.float(),
+                f"bf16/f32 ({mm}, {kk}) @ ({kk}, {nn}) (mixed)", "simt")
+    del a, b
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # K4: its path is kernels.ops.flash_attention (no model reaches it)
-    shape = (attn["b"], attn["s"], attn["h"], attn["d"])
-    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
-                   for _ in range(3))
-        got = None
-        if dt == torch.bfloat16:
-            got, paths["flash_attention"] = path_run(
-                torch, counters, lambda: ops.flash_attention(q, k, v))
-            say(f"kernels.ops.flash_attention path, bf16 {shape}: launches "
-                f"{paths['flash_attention']}")
-            check_path_launches(device, "flash_attention",
-                                paths["flash_attention"])
-        flash_case(torch, rows, q, k, v, f"{tag} s={attn['s']}", got)
+    # K4: its path is kernels.ops.flash_attention (no model reaches it), one
+    # path per route: bf16 at d = 128 (wgmma) and f32 (simt)
+    b_, s_, h_, d_ = attn["b"], attn["s"], attn["h"], attn["d"]
+
+    def qkv(dt, s, d, layout):
+        shape = (b_, h_, s, d) if layout == "bhsd" else (b_, s, h_, d)
+        out = [torch.randn(shape, generator=gen, device=device).to(dt)
+               for _ in range(3)]
+        return [t.transpose(1, 2) for t in out] if layout == "bhsd" else out
+
+    for dt, tag, route in ((bf, "bf16", "wgmma"),
+                           (torch.float32, "f32", "simt")):
+        q, k, v = qkv(dt, s_, d_, "bshd")
+        got, paths[f"flash_attention/{route}"] = path_run(
+            torch, counters, lambda: ops.flash_attention(q, k, v))
+        say(f"kernels.ops.flash_attention path, {tag} {(b_, s_, h_, d_)}: "
+            f"launches {paths[f'flash_attention/{route}']}")
+        check_path_launches(device, "flash_attention", route,
+                            paths[f"flash_attention/{route}"])
+        flash_case(torch, device, rows, q, k, v, f"{tag} s={s_}", route, got)
         del got
         r_ = slice(0, s_ragged)
-        flash_case(torch, rows, q[:, r_].contiguous(), k[:, r_].contiguous(),
-                   v[:, r_].contiguous(), f"{tag} s={s_ragged}")
+        flash_case(torch, device, rows, q[:, r_].contiguous(),
+                   k[:, r_].contiguous(), v[:, r_].contiguous(),
+                   f"{tag} s={s_ragged}", route)
         del q, k, v
+    # the wgmma route's other shapes: both layouts, d = 64 and 128, both s
+    for d in (d_, d_ // 2):
+        for s in (s_, s_ragged):
+            for layout in ("bshd", "bhsd"):
+                if (d, s, layout) == (d_, s_, "bshd"):
+                    continue  # its path run above
+                q, k, v = qkv(bf, s, d, layout)
+                flash_case(torch, device, rows, q, k, v,
+                           f"bf16 s={s} d={d} {layout}", "wgmma")
+                del q, k, v
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return rows, (a32, t32, coef, mhat), paths
 
 
-def phase_times(torch, device, clock, tensors, n, attn):
+def fmt_ms(ms):
+    return "n/a" if ms is None else f"{ms:.3f} ms"
+
+
+def library_f32_out(torch, clock, fn, ok, reps):
+    """Time one library call with f32 output from bf16 operands
+    (``torch.mm(..., out_dtype=torch.float32)``) after checking its result
+    with ``ok``; {"ms": None, "error": text} when this torch lacks it."""
+    try:
+        got = fn()
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        text = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        say(f"library call unavailable: {text}")
+        return {"ms": None, "error": text}
+    check(got.dtype == torch.float32, f"library call returned {got.dtype}")
+    check(ok(got), "library call disagrees with the plain version")
+    del got
+    return {"ms": clock.ms(fn, reps, warm=1), "call": "torch.mm(..., "
+            "out_dtype=torch.float32)"}
+
+
+def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
     from repro_torch.kernels import ops, ref
 
     say("== phase 4: kernel times")
@@ -443,6 +576,12 @@ def phase_times(torch, device, clock, tensors, n, attn):
           "library_ms": clock.ms(lambda: a32.mT @ a32, reps)}
     bf = a32.to(torch.bfloat16)
     k1_bf16_ms = clock.ms(lambda: ops.gram(bf), 3)
+    # one call computing bf16 A^T A in f32 (bf16 in, f32 out): checked
+    # against the plain version first, as addmm is for K2
+    k1_bf16_lib = library_f32_out(
+        torch, clock, lambda: torch.mm(bf.mT, bf, out_dtype=torch.float32),
+        lambda got: float((got - ref.gram_ref(bf)).abs().amax())
+        <= K1_TOL * float(ref.gram_ref(bf).abs().amax()), reps)
     del bf
     # G is symmetric: the function needs m n (n + 1) flops (its upper
     # triangle); bytes: A read once, G written once
@@ -454,12 +593,15 @@ def phase_times(torch, device, clock, tensors, n, attn):
     k1["shape"] = f"A f32 ({m}, {n}), c = 0"
     k1["bf16_ms"] = k1_bf16_ms
     k1["bf16_bound_ms"] = max(flops / PEAK_BF16,
-                              2.0 * m * n / PEAK_BYTES) * 1e3
+                              (2.0 * m * n + 4.0 * n * n) / PEAK_BYTES) * 1e3
+    k1["bf16_library_ms"] = k1_bf16_lib["ms"]
+    k1["bf16_library"] = k1_bf16_lib
     say(f"K1 f32 ({m}, {n}): kernel {k1['ms']:.3f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, library (a.T @ a) "
         f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms "
-        f"({k1['bound_by']}); bf16 kernel {k1_bf16_ms:.3f} ms (bound "
-        f"{k1['bf16_bound_ms']:.3f} ms)")
+        f"({k1['bound_by']}); bf16 kernel {k1_bf16_ms:.3f} ms, library "
+        f"(torch.mm(a.mT, a, out_dtype=f32)) {fmt_ms(k1_bf16_lib['ms'])} "
+        f"(bound {k1['bf16_bound_ms']:.3f} ms)")
     recs["gram"] = k1
 
     x = a32
@@ -504,37 +646,64 @@ def phase_times(torch, device, clock, tensors, n, attn):
         out[r] = rec
     recs["grouped_combine"] = dict(out[R], r1=out[1])
 
+    # K3, one record per route: simt (f32), wgmma (bf16, staged at 11,999
+    # and as it lies at 12,000)
     b32 = t32[0]
-    k = n
     zero = torch.zeros((1, 1), device=device)
-    k3 = {"ms": clock.ms(lambda: ops.matmul(a32, b32, MM_ALPHA), reps),
-          "plain_ms": clock.ms(lambda: ref.matmul_ref(a32, b32, MM_ALPHA),
-                               reps),
-          # one call computing alpha (A @ B) in f32 (beta = 0 ignores zero)
-          "library_ms": clock.ms(lambda: torch.addmm(
-              zero, a32, b32, beta=0.0, alpha=MM_ALPHA), reps)}
-    flops = 2.0 * m * n * k
-    nbytes = 4.0 * (m * k + k * n + m * n)
-    k3["bound_ms"] = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-    k3["bound_by"] = "operations" if flops / PEAK_F32 > \
-        nbytes / PEAK_BYTES else "bytes"
-    k3["shape"] = f"A, B f32 ({m}, {k}) @ ({k}, {n}), alpha = {MM_ALPHA}"
-    ab, bb = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
-    k3["bf16_ms"] = clock.ms(lambda: ops.matmul(ab, bb, MM_ALPHA), reps)
-    k3["bf16_plain_ms"] = clock.ms(lambda: ref.matmul_ref(ab, bb, MM_ALPHA),
-                                   reps)
-    # bf16 @ bf16 in one call returns bf16, not the kernel's f32 C
-    k3["bf16_library_matmul_bf16_out_ms"] = clock.ms(lambda: ab @ bb, reps)
-    k3["bf16_bound_ms"] = max(flops / PEAK_BF16,
-                              (2.0 * (m * k + k * n) + 4.0 * m * n)
-                              / PEAK_BYTES) * 1e3
-    del ab, bb
-    say(f"K3 f32 ({m}, {k}) @ ({k}, {n}): kernel {k3['ms']:.3f} ms, plain "
-        f"{k3['plain_ms']:.3f} ms, library (addmm) {k3['library_ms']:.3f} "
-        f"ms, bound {k3['bound_ms']:.3f} ms ({k3['bound_by']}); bf16 kernel "
-        f"{k3['bf16_ms']:.3f} ms, plain {k3['bf16_plain_ms']:.3f} ms, "
-        f"bf16-output matmul {k3['bf16_library_matmul_bf16_out_ms']:.3f} "
-        f"ms, bound {k3['bf16_bound_ms']:.3f} ms")
+    k3 = {}
+
+    def k3_bound(size, itemsize, peak):
+        flops = 2.0 * size ** 3
+        nbytes = 2.0 * itemsize * size * size + 4.0 * size * size
+        return (max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+                "operations" if flops / peak > nbytes / PEAK_BYTES
+                else "bytes")
+
+    rec = {"ms": clock.ms(lambda: ops.matmul(a32, b32, MM_ALPHA), reps),
+           "plain_ms": clock.ms(lambda: ref.matmul_ref(a32, b32, MM_ALPHA),
+                                reps),
+           # one call computing alpha (A @ B) in f32 (beta = 0 ignores zero)
+           "library_ms": clock.ms(lambda: torch.addmm(
+               zero, a32, b32, beta=0.0, alpha=MM_ALPHA), reps),
+           "library": "torch.addmm(zero, a, b, beta=0, alpha=1.5)",
+           "shape": f"A, B f32 ({n}, {n}) @ ({n}, {n}), alpha = {MM_ALPHA}"}
+    rec["bound_ms"], rec["bound_by"] = k3_bound(n, 4, PEAK_F32)
+    k3["simt"] = rec
+    for size, tag in ((n, "staged"), (mm_aligned, "zero-copy")):
+        if size == n:
+            ab, bb = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+        else:
+            gen = torch.Generator(device=device).manual_seed(98)
+            ab, bb = (torch.randn((size, size), generator=gen,
+                                  device=device).to(torch.bfloat16)
+                      for _ in range(2))
+
+        def lib_ok(got, ab=ab, bb=bb):
+            want = ref.matmul_ref(ab, bb)
+            bound = (ab.shape[1] * torch.finfo(torch.float32).eps
+                     * (ab.float().abs() @ bb.float().abs()))
+            return bool(((got - want).abs() <= bound).all())
+
+        # one call computing A @ B in f32 from bf16 operands (no alpha: one
+        # scalar multiply of C is not what the comparison is about)
+        lib = library_f32_out(
+            torch, clock,
+            lambda: torch.mm(ab, bb, out_dtype=torch.float32), lib_ok, reps)
+        rec = {"ms": clock.ms(lambda: ops.matmul(ab, bb, MM_ALPHA), reps,
+                              warm=2),
+               "plain_ms": clock.ms(
+                   lambda: ref.matmul_ref(ab, bb, MM_ALPHA), reps),
+               "library_ms": lib["ms"], "library": lib,
+               "library_bf16_out_ms": clock.ms(lambda: ab @ bb, reps),
+               "shape": f"A, B bf16 ({size}, {size}) @ ({size}, {size}), "
+                        f"alpha = {MM_ALPHA}, {tag}"}
+        rec["bound_ms"], rec["bound_by"] = k3_bound(size, 2, PEAK_BF16)
+        k3["wgmma" if size == n else f"wgmma_{size}"] = rec
+        del ab, bb
+    for key, rec in k3.items():
+        say(f"K3 {key} {rec['shape']}: kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, library {fmt_ms(rec['library_ms'])}, "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     recs["matmul"] = k3
 
     import torch.nn.functional as F
@@ -544,30 +713,44 @@ def phase_times(torch, device, clock, tensors, n, attn):
     # QK^T and PV over the lower triangle, diagonal included
     flops = 2.0 * 2.0 * b_ * h_ * (s_ * (s_ + 1) / 2.0) * d_
     k4 = {}
-    for dt, tag, peak in ((torch.bfloat16, "bf16", PEAK_BF16),
-                          (torch.float32, "f32", PEAK_F32)):
+    for dt, tag, route, peak in (
+            (torch.bfloat16, "bf16", "wgmma", PEAK_BF16),
+            (torch.float32, "f32", "simt", PEAK_F32)):
         q, k_, v = (torch.randn((b_, s_, h_, d_), generator=gen,
                                 device=device).to(dt) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v))
         nbytes = 4.0 * b_ * s_ * h_ * d_ * dt.itemsize
+        # the plain version first: after the K3 phase's GEMMs, its 0.1 s of
+        # steady load settles the clocks before the 0.3 ms kernel calls
+        # (timed first, the bf16 kernel reads slower than when timed later)
+        plain_ms = clock.ms(lambda: ref.flash_attention_ref(q, k_, v), reps)
         rec = {"ms": clock.ms(lambda: ops.flash_attention(q, k_, v),
-                              4 * reps, warm=2),
-               "plain_ms": clock.ms(
-                   lambda: ref.flash_attention_ref(q, k_, v), reps),
+                              4 * reps, warm=20),
+               "plain_ms": plain_ms,
                "library_ms": clock.ms(
                    lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True), 4 * reps, warm=2),
+                       qt, kt, vt, is_causal=True), 4 * reps, warm=20),
+               "library": "scaled_dot_product_attention(is_causal=True)",
                "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
                "bound_by": "operations" if flops / peak > nbytes /
                PEAK_BYTES else "bytes",
                "shape": f"q, k, v {tag} {(b_, s_, h_, d_)}, causal"}
-        say(f"K4 {tag} {(b_, s_, h_, d_)}: kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms, library (sdpa) "
+        if route == "wgmma":
+            # the same layer stored (b, h, s, d), read through its strides
+            qh, kh, vh = (x.contiguous().transpose(1, 2)
+                          for x in (qt, kt, vt))
+            rec["bhsd_ms"] = clock.ms(
+                lambda: ops.flash_attention(qh, kh, vh), 4 * reps, warm=20)
+            del qh, kh, vh
+        say(f"K4 {route} {tag} {(b_, s_, h_, d_)}: kernel {rec['ms']:.3f} "
+            f"ms, plain {rec['plain_ms']:.3f} ms, library (sdpa) "
             f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-            f"({rec['bound_by']})")
-        k4[tag] = rec
+            f"({rec['bound_by']})"
+            + (f"; (b, h, s, d) layout {rec['bhsd_ms']:.3f} ms"
+               if "bhsd_ms" in rec else ""))
+        k4[route] = rec
         del q, k_, v, qt, kt, vt
-    recs["flash_attention"] = dict(k4["bf16"], f32=k4["f32"])
+    recs["flash_attention"] = k4
     return recs
 
 
@@ -575,8 +758,7 @@ def run_solve(torch, clock, p, a, counters):
     """One ``p.svd_info(a)`` (``p.svd(a)`` with its PolarInfo) with every
     launch count set to 0 just before and read just after; returns (u, s,
     vh, seconds, launches, info)."""
-    for mod in counters:
-        mod.launches = 0
+    zero_counts(counters)
     clock.sync()
     t0 = time.perf_counter()
     u, s, vh, info = p.svd_info(a)
@@ -709,6 +891,7 @@ def phase_dynamic(torch, device, clock, a, s_true):
         # Cholesky iteration after it; K2: one combine per iteration
         want = {"gram": 1 + 2 * R + (iters - 1), "grouped_combine": iters,
                 "matmul": 0, "flash_attention": 0}
+        want.update({f"{k}/{r}": 0 for k in ROUTED for r in ROUTES})
         if device.type == "cuda":
             check(launches == want, f"dynamic solve launched {launches}, "
                   f"expected {want} for {iters} iterations")
@@ -842,9 +1025,11 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         n, ragged, attn = N, RAGGED, ATTN
         mm_ragged, s_ragged = MM_RAGGED, ATTN_RAGGED_S
+        mm_aligned, mm_transposed = MM_ALIGNED, MM_TRANSPOSED
     else:
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
+        mm_aligned, mm_transposed = 168, 64
     clock = Clock(torch, device)
 
     t_start = time.perf_counter()
@@ -852,8 +1037,9 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         record["build"] = phase_build()
     record["parity"], tensors, paths = phase_parity(
-        torch, device, n, ragged, attn, mm_ragged, s_ragged)
-    times = phase_times(torch, device, clock, tensors, n, attn)
+        torch, device, n, ragged, attn, mm_ragged, s_ragged, mm_aligned,
+        mm_transposed)
+    times = phase_times(torch, device, clock, tensors, n, attn, mm_aligned)
     del tensors
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -877,29 +1063,43 @@ def main(argv=None) -> int:
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:31")}
-    main_case = {"gram": "f32 %dx%d c=0" % (n, n),
-                 "grouped_combine": "f32 r=%d xw=1" % R,
-                 "matmul": "f32 %dx%d" % (n, n),
-                 "flash_attention": "bf16 s=%d" % attn["s"]}
-    for name, (src, replaces) in sources.items():
-        t = times[name]
+    # per record: (kernel, route or None, its times, its parity case)
+    entries = [("gram", None, times["gram"], "f32 %dx%d c=0" % (n, n)),
+               ("grouped_combine", None, times["grouped_combine"],
+                "f32 r=%d xw=1" % R),
+               ("matmul", "simt", times["matmul"]["simt"],
+                "f32 %dx%d" % (n, n)),
+               ("matmul", "wgmma", times["matmul"]["wgmma"],
+                "bf16 %dx%d (staged)" % (n, n)),
+               ("flash_attention", "wgmma", times["flash_attention"]["wgmma"],
+                "bf16 s=%d" % attn["s"]),
+               ("flash_attention", "simt", times["flash_attention"]["simt"],
+                "f32 s=%d" % attn["s"])]
+    for name, route, t, case in entries:
+        src, replaces = sources[name]
         err = next(row["max_abs_err"] for row in record["parity"]
-                   if row["kernel"] == name and row["case"] == main_case[name])
+                   if row["kernel"] == name and row["case"] == case)
         by_path = {"static_solve": main_rec["launches_per_solve"][name],
                    "dynamic_solve": dyn_rec["launches_per_solve"][name]}
-        if name in paths:
-            # off the solver path: its own path is its kernels.ops entry
-            by_path[f"kernels.ops.{name}"] = paths[name][name]
-            launches = paths[name][name]
+        if route is not None:
+            # off the solver path: its own path is its kernels.ops entry,
+            # driven once per route
+            key = f"{name}/{route}"
+            by_path[f"kernels.ops.{name}"] = paths[key][key]
+            launches = paths[key][key]
         else:
             launches = by_path["static_solve"]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches,
-                        "launches_by_path": by_path,
-                        "max_abs_err": err, "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"], "case": t["shape"]})
+        rec = {"name": name if route is None else f"{name}/{route}",
+               "route": "cuda", "kernel_route": route, "source": src,
+               "replaces": replaces, "launches": launches,
+               "launches_by_path": by_path, "max_abs_err": err,
+               "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"], "case": t["shape"]}
+        if name == "gram":
+            rec["bf16"] = {"ms": t["bf16_ms"], "bound_ms": t["bf16_bound_ms"],
+                           "library_ms": t["bf16_library_ms"]}
+        kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

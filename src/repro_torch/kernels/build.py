@@ -5,8 +5,9 @@ C interface and compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library (seconds, not the minutes a PyTorch-header extension takes).  The
 builds run in parallel, one ``nvcc`` per source, into ``build/`` at the
 repository root (listed in ``.gitignore``).  A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a
-stale library is never loaded.
+a hash of its source, of every shared header (``csrc/*.cuh``, which any
+source may include) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: :func:`library` builds on its first call.
 """
@@ -43,12 +44,16 @@ SIGNATURES = {
         "zolo_grouped_combine": (_I, _I, _P, _P, _P, _LL, _I, _P, _P, _P),
     },
     "matmul": {
-        "zolo_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
-                        _F, _P, _P),
+        "zolo_matmul_f32": (_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _F,
+                            _P, _P),
+        "zolo_matmul_bf16": (_P, _I, _LL, _P, _I, _LL, _P, _I, _I, _I, _F,
+                             _P, _P),
     },
     "flash_attention": {
         "zolo_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _LLP,
                                  _F, _P),
+        "zolo_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _LLP,
+                                      _F, _P),
     },
 }
 
@@ -70,6 +75,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -2,8 +2,8 @@
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel``
-(``flash_attention_kernel_call``).  The kernel is
-``csrc/flash_attention.cu``; its plain PyTorch version is
+(``flash_attention_kernel_call``).  The kernels are in
+``csrc/flash_attention.cu``; their plain PyTorch version is
 :func:`flash_attention_plain` (``ref.flash_attention_ref``).
 
 Like the Pallas kernel, it computes causal self-attention only: q, k and
@@ -21,14 +21,28 @@ made.
 
 What bounds it on the H100: operations.  The causal half needs
 2 b h s^2 d flops, 1.37e11 at qwen3-8b's layer (h = 32, d = 128,
-s = 4,096): 2.05 ms at 67 TFLOP/s (f32 outside the tensor cores).  What
-the design does about it: a SIMT FFMA kernel with 64-query blocks that
-loop over 64-key tiles in shared memory, skipping the tiles above the
-diagonal (all masked), with 4 x 4 score and 4 x d/16 output register
-tiles per thread.
+s = 4,096): 0.139 ms at 989 TFLOP/s on the bf16 tensor cores, 2.05 ms at
+67 TFLOP/s (f32 outside the tensor cores).  Two routes, chosen by
+:func:`flash_route` from dtype, d, strides and alignment before the launch
+(a rule, not a fallback on failure):
+
+* ``"wgmma"`` — bf16 with d in {64, 128} whose strides over s, h and b are
+  multiples of 8 elements and whose bases are 16-byte aligned (what a TMA
+  tensor map can describe: contiguous (b, s, h, d) and the transposed
+  (b, h, s, d) view both qualify).  128-query blocks of two consumer
+  warpgroups; K and V tiles of 128 keys through a 2-stage TMA ring; QK^T
+  and PV as ``wgmma`` with f32 accumulators, P rounded to bf16 in the
+  registers that feed the PV product.
+* ``"simt"`` — every other input (f32, other d, other strides): a SIMT
+  FFMA kernel with 128-query blocks (64 at d > 128) that loop over 64-key
+  tiles in shared memory, skipping the tiles above the diagonal (all
+  masked), with 8 x 4 score and 8 x 8 output register tiles per thread
+  (d <= 128), P kept transposed in shared memory, and f32 K and V tiles
+  prefetched by ``cp.async`` under the computation.
 
 ``launches`` counts kernel launches made through
-:func:`flash_attention_kernel_call`.
+:func:`flash_attention_kernel_call`, and ``launches_by_route`` splits them
+by route.
 """
 
 from __future__ import annotations
@@ -46,8 +60,29 @@ flash_attention_plain = flash_attention_ref  # the plain PyTorch version
 FLASH_ACCUM_DTYPE = torch.float32
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+ROUTES = ("simt", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
+TMA_ALIGN_ELEMS = 8   # a TMA stride is a multiple of 16 bytes
+TMA_ALIGN_BYTES = 16  # ... and so is its base address
 
 launches = 0
+launches_by_route = {r: 0 for r in ROUTES}
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route of causal attention over (b, s, h, d) q, k, v:
+    ``"wgmma"`` for bf16 with d in {64, 128}, unit stride along d, strides
+    over b, s and h that are multiples of 8 elements and 16-byte aligned
+    bases; ``"simt"`` for every other input.  Reads dtypes, shapes,
+    strides and data pointers only."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in WGMMA_HEAD_DIMS:
+        return "simt"
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.stride(3) != 1 or \
+                t.data_ptr() % TMA_ALIGN_BYTES or \
+                any(t.stride(i) % TMA_ALIGN_ELEMS for i in (0, 1, 2)):
+            return "simt"
+    return "wgmma"
 
 
 def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
@@ -88,10 +123,16 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
                                         for i in (0, 1, 2)))
     lib = _build.library("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.zolo_flash_attention(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), b, s, h, d, strides,
-        1.0 / math.sqrt(d), stream)
-    _build.check(code, "flash attention kernel")
+    route = flash_route(q, k, v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if route == "wgmma":
+        code = lib.zolo_flash_attention_bf16(
+            *ptrs, b, s, h, d, strides, 1.0 / math.sqrt(d), stream)
+    else:
+        code = lib.zolo_flash_attention(
+            int(q.dtype == torch.bfloat16), *ptrs, b, s, h, d, strides,
+            1.0 / math.sqrt(d), stream)
+    _build.check(code, f"flash attention kernel ({route})")
     launches += 1
+    launches_by_route[route] += 1
     return o

@@ -1,9 +1,10 @@
-"""K3: tiled matmul ``C = alpha (A @ B)`` — the CUDA kernel's wrapper.
+"""K3: tiled matmul ``C = alpha (A @ B)`` — the CUDA kernels' wrapper.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/matmul.py::_matmul_kernel``
-(``matmul_kernel_call``).  The kernel is ``csrc/matmul.cu``; its plain
-PyTorch version is :func:`matmul_plain` (``ref.matmul_ref``), which the
-CPU path runs and the card is held against.
+(``matmul_kernel_call``).  The kernels are in ``csrc/matmul.cu``; their
+plain PyTorch version is :func:`matmul_plain` (``ref.matmul_ref``), which
+the CPU path runs and the card is held against, elementwise within the f32
+sums' forward error bound k eps |alpha| (|A| @ |B|).
 
 K3 is off the solver path.  The reference's docstring names Q1 Q2^T,
 U = Q_p V and the formation of H as its users, but its code computes all
@@ -13,18 +14,33 @@ kernel.  The port keeps the same split: its solver leaves those products
 to ``torch.matmul``, and K3 is reached through
 :func:`repro_torch.kernels.ops.matmul` alone.
 
-What bounds it on the H100: operations.  2 m n k f32 flops, 3.46 TFLOP at
-m = n = k = 11,999: 51.6 ms at 67 TFLOP/s (f32 outside the tensor cores).
-What the design does about it: 128 x 128 output tiles of 256 threads
-with 8 x 8 f32 register tiles, a double-buffered 16-deep k loop in shared
-memory, loads along whichever axis of each operand has unit stride, and
-masked ragged edges (any m, k, n; no padding).  True f32 products, no
-TF32; bf16 operands widen to f32 per element.
+Two routes, chosen by :func:`matmul_route` from the operands' dtypes and
+k before the launch (a rule, not a fallback on failure):
 
-``launches`` counts kernel launches made through :func:`matmul_kernel_call`.
+* ``"wgmma"`` — bf16 A and bf16 B (k >= 1): TMA + ``wgmma`` on the tensor
+  cores, bf16 products summed in f32, 128 x 256 output tiles.  Bound on
+  the H100: operations, 2 m n k flops at 989 TFLOP/s (3.5 ms at 11,999^3).
+  TMA needs a leading dimension that is a multiple of 8 elements and a
+  16-byte aligned base (:func:`tma_layout`); any other operand is staged by
+  :func:`stage_bf16` into a buffer whose rows are padded to a multiple of 8
+  (a ``copy_``, counted in the call's time: on an H100 80GB HBM3 at 700 W,
+  the staged call at 11,999^3 took 6.68 ms against 5.05 ms zero-copy at
+  12,000^3, ``chip_smoke.py``).  The tensor map keeps the true extent, so
+  the pad is never read.  Row-major operands and transposed views are both taken as they
+  lie (K-major or MN-major ``wgmma`` operands).
+* ``"simt"`` — every other pair: true f32 FFMA products (no TF32), 128 x
+  128 tiles of 128 threads (8 x 16 outputs each) fed by a 2-stage ring of
+  32-deep ``cp.async`` copies, any strides.  Bound: 2 m n k flops at 67
+  TFLOP/s (51.6 ms at 11,999^3).  A bf16 operand beside an f32 one is
+  widened to f32 first (exact); no f32 operand is ever rounded to bf16.
+
+``launches`` counts kernel launches made through
+:func:`matmul_kernel_call`, and ``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,9 +51,53 @@ matmul_plain = matmul_ref  # the plain PyTorch version of this kernel
 
 MATMUL_ACCUM_DTYPE = torch.float32
 MATMUL_INPUT_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_DIM = 65_535 * 128  # grid rows of 128-wide tiles
+ROUTES = ("simt", "wgmma")
+_MAX_DIM = 65_535 * 128  # keeps tile counts and row offsets in int range
+TMA_ALIGN_ELEMS = 8      # a TMA stride is a multiple of 16 bytes
+TMA_ALIGN_BYTES = 16     # ... and so is its base address
 
 launches = 0
+launches_by_route = {r: 0 for r in ROUTES}
+
+
+def matmul_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The route of ``a @ b``: ``"wgmma"`` for two bf16 operands with
+    k >= 1, else ``"simt"``.  Reads dtypes and shapes only."""
+    if a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16 and \
+            a.shape[1] > 0:
+        return "wgmma"
+    return "simt"
+
+
+def tma_layout(t: torch.Tensor) -> Optional[Tuple[str, int]]:
+    """How TMA can read the 2-D bf16 operand ``t`` as it lies:
+    ``("row", ld)`` (unit stride along columns), ``("col", ld)`` (unit
+    stride along rows, a transposed view), or ``None`` when its leading
+    dimension is not a multiple of 8 elements or its base is not 16-byte
+    aligned (then :func:`stage_bf16` copies it).  Reads strides and the
+    data pointer only."""
+    if t.data_ptr() % TMA_ALIGN_BYTES:
+        return None
+    rows, cols = t.shape
+    s0, s1 = t.stride()
+    if s1 == 1 and s0 % TMA_ALIGN_ELEMS == 0 and s0 >= cols:
+        return "row", s0
+    if s0 == 1 and s1 % TMA_ALIGN_ELEMS == 0 and s1 >= rows:
+        return "col", s1
+    return None
+
+
+def stage_bf16(t: torch.Tensor) -> torch.Tensor:
+    """A row-major copy of the 2-D ``t`` whose leading dimension is rounded
+    up to a multiple of 8 elements: a (rows, cols) view of a fresh (rows,
+    ld) buffer (``stride(0)`` reports ld).  The pad columns are left
+    unwritten: the kernel's tensor map never reads them."""
+    rows, cols = t.shape
+    ld = -(-cols // TMA_ALIGN_ELEMS) * TMA_ALIGN_ELEMS
+    buf = torch.empty((rows, ld), dtype=t.dtype, device=t.device)
+    view = buf[:, :cols]
+    view.copy_(t)
+    return view
 
 
 def matmul_kernel_call(a: torch.Tensor, b: torch.Tensor,
@@ -74,14 +134,32 @@ def matmul_kernel_call(a: torch.Tensor, b: torch.Tensor,
     else:
         alpha_buf = None
         alpha_val = float(alpha)
+    alpha_ptr = None if alpha_buf is None else alpha_buf.data_ptr()
     c = torch.empty((m, n), dtype=MATMUL_ACCUM_DTYPE, device=a.device)
     lib = _build.library("matmul")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.zolo_matmul(
-        int(a.dtype == torch.bfloat16), int(b.dtype == torch.bfloat16),
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0),
-        a.stride(1), b.stride(0), b.stride(1), alpha_val,
-        None if alpha_buf is None else alpha_buf.data_ptr(), stream)
-    _build.check(code, "matmul kernel")
+    route = matmul_route(a, b)
+    if route == "wgmma":
+        la, lb = tma_layout(a), tma_layout(b)
+        if la is None:
+            a = stage_bf16(a)
+            la = ("row", a.stride(0))
+        if lb is None:
+            b = stage_bf16(b)
+            lb = ("row", b.stride(0))
+        # A column-major is MN-major (its m axis contiguous); B row-major is
+        # MN-major (its n axis contiguous)
+        code = lib.zolo_matmul_bf16(
+            a.data_ptr(), int(la[0] == "col"), la[1], b.data_ptr(),
+            int(lb[0] == "row"), lb[1], c.data_ptr(), m, n, k, alpha_val,
+            alpha_ptr, stream)
+    else:
+        a, b = a.float(), b.float()  # widens a bf16 operand exactly
+        code = lib.zolo_matmul_f32(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0),
+            a.stride(1), b.stride(0), b.stride(1), alpha_val, alpha_ptr,
+            stream)
+    _build.check(code, f"matmul kernel ({route})")
     launches += 1
+    launches_by_route[route] += 1
     return c

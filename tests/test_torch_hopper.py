@@ -1,0 +1,305 @@
+"""Routes of the port's tensor-core kernels: K3 (tiled matmul) and K4
+(causal flash attention) each have a ``"wgmma"`` route (TMA + ``wgmma``,
+bf16) and a ``"simt"`` route (FFMA, every other input).
+
+On the CPU: the route rules, which read dtypes, shapes, strides and data
+pointers only (so CPU tensors stand in for CUDA ones), the bf16 staging
+helper that gives TMA a leading dimension it can describe, and the build's
+rebuild rule for the shared ``csrc/*.cuh`` header.  No ``nvcc`` is needed.
+
+The ``gpu``-marked tests launch each route on the card and hold it against
+the plain version with the bounds of ``tests/test_torch_kernels.py``
+(K3: k eps |alpha| (|A| @ |B|) elementwise; K4 bf16: 2^-8 (P|V| + |o|)
+plus 1e-5 max|v|; K4 f32: 1e-5 max|v|), reading each route's launch
+counter around its own call.  On the card:
+``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
+tests/test_torch_hopper.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import matmul as kmm  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+def _misaligned(shape, dtype):
+    """A tensor of ``shape`` whose base is 2 bytes past a 16-byte
+    boundary (row-major, contiguous strides)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=dtype)
+    off = (-(flat.data_ptr() // flat.element_size()) + 1) % 8
+    return flat[off:off + n].view(shape)
+
+
+# --- K3 route rule -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("adt,bdt,k,want", [
+    (BF, BF, 64, "wgmma"),
+    (BF, BF, 13, "wgmma"),     # any k >= 1: TMA zero-fills the k tail
+    (BF, BF, 0, "simt"),       # nothing to load: the f32 kernel writes 0
+    (BF, F32, 64, "simt"),     # mixed: never rounds the f32 operand
+    (F32, BF, 64, "simt"),
+    (F32, F32, 64, "simt"),
+])
+def test_matmul_route_by_dtype_and_k(adt, bdt, k, want):
+    a = torch.zeros((24, k), dtype=adt)
+    b = torch.zeros((k, 40), dtype=bdt)
+    assert kmm.matmul_route(a, b) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("row aligned", ("row", 24)),
+    ("row padded", ("row", 32)),
+    ("transposed aligned", ("col", 16)),
+    ("row unaligned ld", None),          # 11,999-like rows: staged
+    ("transposed unaligned ld", None),
+    ("misaligned base", None),
+    ("strided both ways", None),
+    ("broadcast rows", None),
+])
+def test_tma_layout_reads_strides_and_alignment(case, want):
+    t = {
+        "row aligned": lambda: torch.zeros((16, 24), dtype=BF),
+        "row padded": lambda: torch.zeros((16, 32), dtype=BF)[:, :21],
+        "transposed aligned": lambda: torch.zeros((24, 16), dtype=BF).mT,
+        "row unaligned ld": lambda: torch.zeros((16, 13), dtype=BF),
+        "transposed unaligned ld": lambda: torch.zeros((16, 13),
+                                                       dtype=BF).mT,
+        "misaligned base": lambda: _misaligned((16, 24), BF),
+        "strided both ways": lambda: torch.zeros((32, 48), dtype=BF)[::2,
+                                                                      ::2],
+        "broadcast rows": lambda: torch.zeros((1, 24), dtype=BF).expand(16,
+                                                                        24),
+    }[case]()
+    assert kmm.tma_layout(t) == want
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.arange(5 * 13, dtype=F32).view(5, 13),
+    lambda: torch.arange(13 * 5, dtype=F32).view(13, 5).mT,
+    lambda: torch.arange(3 * 8, dtype=F32).view(3, 8),
+    lambda: torch.arange(1 * 7, dtype=F32).view(1, 7),
+], ids=["ragged", "transposed", "aligned", "one-row"])
+def test_stage_bf16_keeps_values_and_pads_the_stride(make):
+    src = make().to(BF)
+    staged = kmm.stage_bf16(src)
+    assert staged.shape == src.shape and staged.dtype == BF
+    assert torch.equal(staged, src)
+    ld = staged.stride(0)
+    assert staged.stride(1) == 1
+    assert ld % 8 == 0 and src.shape[1] <= ld < src.shape[1] + 8
+    assert kmm.tma_layout(staged) == ("row", ld)
+
+
+# --- K4 route rule -----------------------------------------------------------
+
+
+def _bshd(shape, dtype=BF, layout="bshd", hd_pad=0):
+    b, s, h, d = shape
+    if layout == "bhsd":  # (b, h, s, d) storage seen as (b, s, h, d)
+        return torch.zeros((b, h, s, d), dtype=dtype).transpose(1, 2)
+    if hd_pad:  # heads hd_pad elements apart past d
+        return torch.zeros((b, s, h, d + hd_pad), dtype=dtype)[..., :d]
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 d=128", "wgmma"),
+    ("bf16 d=64", "wgmma"),
+    ("bf16 d=128 (b, h, s, d) view", "wgmma"),
+    ("bf16 d=64 heads padded by 8", "wgmma"),
+    ("f32 d=128", "simt"),
+    ("bf16 d=32", "simt"),
+    ("bf16 d=120", "simt"),
+    ("bf16 d=128 heads padded by 4", "simt"),   # head stride % 8 != 0
+    ("bf16 d=64 (b, h, s, d) view, rows of 68", "simt"),  # s stride 68
+    ("bf16 d=128 misaligned base", "simt"),
+    ("bf16 d=64 strided d", "simt"),
+])
+def test_flash_route_reads_dtype_d_strides_and_alignment(case, want):
+    q = {
+        "bf16 d=128": lambda: _bshd((1, 40, 2, 128)),
+        "bf16 d=64": lambda: _bshd((2, 33, 3, 64)),
+        "bf16 d=128 (b, h, s, d) view": lambda: _bshd((1, 40, 2, 128),
+                                                      layout="bhsd"),
+        "bf16 d=64 heads padded by 8": lambda: _bshd((1, 40, 2, 64),
+                                                     hd_pad=8),
+        "f32 d=128": lambda: _bshd((1, 40, 2, 128), dtype=F32),
+        "bf16 d=32": lambda: _bshd((1, 40, 2, 32)),
+        "bf16 d=120": lambda: _bshd((1, 40, 2, 120)),
+        "bf16 d=128 heads padded by 4": lambda: _bshd((1, 40, 2, 128),
+                                                      hd_pad=4),
+        "bf16 d=64 (b, h, s, d) view, rows of 68": lambda: torch.zeros(
+            (1, 2, 40, 68), dtype=BF)[..., :64].transpose(1, 2),
+        "bf16 d=128 misaligned base": lambda: _misaligned((1, 40, 2, 128),
+                                                          BF),
+        "bf16 d=64 strided d": lambda: torch.zeros((1, 40, 2, 128),
+                                                   dtype=BF)[..., ::2],
+    }[case]()
+    k = torch.zeros(q.shape, dtype=q.dtype)
+    assert kflash.flash_route(q, k, k) == want
+    # the rule looks at every operand, not q alone
+    if want == "wgmma":
+        assert kflash.flash_route(k, k, q) == "wgmma"
+        assert kflash.flash_route(k, _misaligned(tuple(q.shape), BF),
+                                  k) == "simt"
+
+
+# --- build: the shared header ------------------------------------------------
+
+
+def test_build_target_tracks_every_header(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "x.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// v1\n")
+    first = build._target("x")
+    assert first == build._target("x")  # deterministic
+    (tmp_path / "a.cuh").write_text("// v2\n")
+    second = build._target("x")
+    assert second != first
+    (tmp_path / "b.cuh").write_text("// new\n")
+    third = build._target("x")
+    assert third not in (first, second)
+    (tmp_path / "x.cu").write_text('#include "a.cuh"\n// edited\n')
+    assert build._target("x") not in (first, second, third)
+
+
+def test_build_header_is_included_by_the_tensor_core_sources():
+    headers = {p.name for p in build.CSRC.glob("*.cuh")}
+    assert headers == {"hopper.cuh"}
+    for name in ("matmul", "flash_attention"):
+        assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu"
+                                           ).read_text()
+    text = (build.CSRC / "hopper.cuh").read_text()
+    for piece in ("cuTensorMapEncodeTiled", "cudaGetDriverEntryPoint",
+                  "CU_TENSOR_MAP_SWIZZLE_128B", "mbarrier.try_wait.parity",
+                  "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor",
+                  "wgmma.fence", "wgmma.commit_group", "wgmma.wait_group",
+                  "m64n256k16.f32.bf16.bf16", "m64n128k16.f32.bf16.bf16"):
+        assert piece in text, piece
+
+
+# --- on the card --------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the Hopper kernels run only on the "
+                    "card (python3 chip_smoke.py, or pytest -m gpu there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _route_call(mod, route, fn):
+    """fn() with the launch counters read around it: exactly one launch,
+    on ``route``."""
+    before = dict(mod.launches_by_route)
+    total = mod.launches
+    out = fn()
+    after = mod.launches_by_route
+    assert mod.launches == total + 1
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == route) for r in after}
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,route", [
+    ("bf16 row (256, 512) @ (512, 264)", "wgmma"),
+    ("bf16 transposed views (384, 256) @ (256, 320)", "wgmma"),
+    ("bf16 staged (1001, 333) @ (333, 517)", "wgmma"),
+    ("bf16 A transposed, B staged (200, 136) @ (136, 77)", "wgmma"),
+    ("bf16/f32 (300, 129) @ (129, 200)", "simt"),
+    ("f32 (1001, 333) @ (333, 517)", "simt"),
+    ("f32 transposed (257, 100) @ (100, 129)", "simt"),
+])
+def test_matmul_route_matches_plain(cuda, case, route):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape, dt=BF):
+        return torch.randn(shape, generator=gen, device=cuda).to(dt)
+
+    a, b = {
+        "bf16 row (256, 512) @ (512, 264)": lambda: (rnd(256, 512),
+                                                     rnd(512, 264)),
+        "bf16 transposed views (384, 256) @ (256, 320)": lambda: (
+            rnd(256, 384).mT, rnd(320, 256).mT),
+        "bf16 staged (1001, 333) @ (333, 517)": lambda: (rnd(1001, 333),
+                                                         rnd(333, 517)),
+        "bf16 A transposed, B staged (200, 136) @ (136, 77)": lambda: (
+            rnd(136, 200).mT, rnd(136, 77)),
+        "bf16/f32 (300, 129) @ (129, 200)": lambda: (rnd(300, 129),
+                                                     rnd(129, 200, dt=F32)),
+        "f32 (1001, 333) @ (333, 517)": lambda: (rnd(1001, 333, dt=F32),
+                                                 rnd(333, 517, dt=F32)),
+        "f32 transposed (257, 100) @ (100, 129)": lambda: (
+            rnd(100, 257, dt=F32).mT, rnd(129, 100, dt=F32).mT),
+    }[case]()
+    for alpha in (1.5, torch.tensor(-0.5, device=cuda)):
+        got = _route_call(kmm, route, lambda: ops.matmul(a, b, alpha))
+        want = ref.matmul_ref(a, b, alpha)
+        torch.cuda.synchronize()
+        assert got.dtype == F32 and got.shape == (a.shape[0], b.shape[1])
+        k = a.shape[1]
+        bound = (k * torch.finfo(F32).eps * abs(float(alpha))
+                 * (a.float().abs() @ b.float().abs()))
+        assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+def _flash_bound(q, k, v, want):
+    u = 2.0 ** -8
+    pv = ref.flash_attention_ref(q, k, v.abs())
+    return ((u + u * u) * pv + u * want.abs()
+            + 1e-5 * float(v.float().abs().amax()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [128, 100, 300, 512])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_wgmma_route_matches_plain(cuda, d, s, layout):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, h = 2, 3
+
+    def rnd():
+        if layout == "bhsd":
+            return torch.randn((b, h, s, d), generator=gen,
+                               device=cuda).to(BF).transpose(1, 2)
+        return torch.randn((b, s, h, d), generator=gen, device=cuda).to(BF)
+
+    q, k, v = rnd(), rnd(), rnd()
+    got = _route_call(kflash, "wgmma", lambda: ops.flash_attention(q, k, v))
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == BF and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want).abs()
+    assert bool((diff <= _flash_bound(q, k, v, want)).all()), \
+        float((diff / _flash_bound(q, k, v, want)).amax())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(F32, 128), (F32, 64), (BF, 32),
+                                     (BF, 120)])
+def test_flash_simt_route_matches_plain(cuda, dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((1, 200, 2, d), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    got = _route_call(kflash, "simt", lambda: ops.flash_attention(q, k, v))
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    if dtype == F32:
+        assert float(diff.amax()) <= 1e-5 * float(v.abs().amax())
+    else:
+        assert bool((diff <= _flash_bound(q, k, v, want)).all())

@@ -317,6 +317,10 @@ def test_build_lists_every_kernel_source():
     srcs = {p.stem for p in build.CSRC.glob("*.cu")}
     assert set(build.SOURCES) == srcs == set(build.SIGNATURES)
     assert srcs == {"gram", "grouped_combine", "matmul", "flash_attention"}
+    # the one shared header is no library of its own: it is hashed into
+    # every source's target (test_torch_hopper.py)
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
+    assert not set(build.SOURCES) & {"hopper"}
     for name in build.SOURCES:  # every entry point is in its source
         text = (build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in build.SIGNATURES[name].items():
