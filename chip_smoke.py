@@ -10,17 +10,22 @@ Phases, each printed as it runs:
 2. build: all four Hopper kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (in parallel), and their ``-Xptxas -v`` report; spills
    and serialized ``wgmma`` are flagged, and fail the run on the
-   tensor-core kernels (``matmul_bf16``, ``flash_bf16``).
-3. parity at full width: K1 (fused shifted Gram) at 11,999^2 in f32 and
-   bf16 with c = 0, below and above the clamp floor, plus a ragged
-   1000 x 333; K2 (r-term combine) at 11,999^2, r in {1, 4}, f32 and
-   bf16, xw in {0, 1} — each against its plain PyTorch version (f32:
-   max error / max|result|; bf16 output: one bf16 ulp plus the f32
-   sums' error bound, elementwise).  K3 (tiled matmul, alpha = 1.5) and
-   K4 (causal flash attention) each have two routes, ``simt`` and
-   ``wgmma``; each route is driven once through its ``kernels.ops``
-   entry as a path of its own (counts zeroed before, read after), and
-   every other case reads its route's counter around its own call.  K3:
+   tensor-core kernels (``gram_bf16``, ``matmul_bf16``, ``flash_bf16``).
+3. parity at full width.  K1 (fused shifted Gram), K3 (tiled matmul,
+   alpha = 1.5) and K4 (causal flash attention) each have two routes,
+   ``simt`` and ``wgmma``; each route is driven once through its
+   ``kernels.ops`` entry as a path of its own (counts zeroed before, read
+   after), and every other case reads its route's counter around its own
+   call.  K1 with c = 0, below and above the clamp floor: f32 11,999^2 and
+   ragged 1000 x 333 (simt); bf16 11,999^2 (wgmma, staged: rows of 11,999
+   are not 16-byte aligned) and its column-major view (staged once,
+   column-major kept), 12,000^2 and its column-major view (zero-copy),
+   ragged 1000 x 333 and 333 x 1000 — f32 within K1_TOL (max error /
+   max|G|), bf16 elementwise within m eps (|A|^T |A|), G exactly
+   symmetric, the applied shift max(c, floor).  K2 (r-term combine) at 11,999^2, r
+   in {1, 4}, f32 and bf16, xw in {0, 1} (f32: max error / max|result|;
+   bf16 output: one bf16 ulp plus the f32 sums' error bound,
+   elementwise).  K3:
    f32 11,999^2 (simt), bf16 11,999^2 (wgmma, staged: rows of 11,999 are
    not 16-byte aligned), bf16 12,000^2 and 4,096^2 transposed views
    (wgmma, zero-copy, both majors), mixed f32/bf16 (simt) and ragged
@@ -33,9 +38,11 @@ Phases, each printed as it runs:
    the bf16 output, 2^-8 (P|V|) + 2^-8 |o|, plus the f32 term).
 4. kernel times (CUDA events, warm), beside the plain version, one
    PyTorch library call computing the same function, and the bound:
-   every route of K3 and K4 on its own; the library calls with f32 output
-   from bf16 operands (``torch.mm(..., out_dtype=torch.float32)``, for K3
-   bf16 and K1 bf16) are checked against the plain version first.
+   every route of K1, K3 and K4 on its own (K1 bf16 at 11,999^2, staged,
+   with the staging copy also timed alone, and at 12,000^2 as it lies);
+   the library calls with f32 output from bf16 operands
+   (``torch.mm(..., out_dtype=torch.float32)``, for K3 bf16 and K1 bf16)
+   are checked against the plain version first.
 5. main path: the paper's linverse matrix (n = 11,999, kappa = 9.06e3)
    synthesized on the card and solved through
    ``plan(SvdConfig(method="zolo_cuda", ...)).svd(a)``, with the kernel
@@ -56,11 +63,21 @@ Phases, each printed as it runs:
    same limits.
 8. the plain yardstick of the dynamic path, ``method="zolo"``: it
    launches no kernel, and its singular values agree with phase 7's.
+9. the bf16 compute plan: the same f32 matrix through
+   ``plan(SvdConfig(method="zolo_cuda", ..., compute_dtype="bfloat16"))
+   .svd(a)`` — bf16 iterates, every K1 launch on bf16 operands (``wgmma``,
+   10 per solve; K2 2), f32 factors back: wall time, peak memory, the
+   polar/eigh split, and the reference's bf16 criteria (orthogonality of
+   U and Vh <= 8 eps(bf16) = 0.0625, the top half of s within 5e-2
+   relative of the exact spectrum, all finite); then the same plan on
+   ``zolo_static`` (no kernel launch), whose factors meet the same limits
+   against phase 9's singular values.
 
 The line before the last names the card and its power limit; the one
-before it is a JSON object with one record per kernel and route (K3 and
-K4: ``matmul/simt``, ``matmul/wgmma``, ``flash_attention/wgmma``,
-``flash_attention/simt``); the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
+before it is a JSON object with one record per kernel and route
+(``gram/simt``, ``gram/wgmma``, ``grouped_combine``, ``matmul/simt``,
+``matmul/wgmma``, ``flash_attention/wgmma``, ``flash_attention/simt``);
+the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line.  It also exits non-zero
 when no CUDA device is present (unless rehearsing on the CPU) and when
 run outside a checkout of the repository.  A full record is written to
@@ -83,9 +100,13 @@ KAPPA = 9.06e3      # its 2-norm condition number
 R = 4               # the paper's r for linverse
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
+                   "gram/simt": 10, "gram/wgmma": 0,
                    "matmul": 0, "flash_attention": 0,
                    "matmul/simt": 0, "matmul/wgmma": 0,
                    "flash_attention/simt": 0, "flash_attention/wgmma": 0}
+# per bf16 compute solve (phase 9): the same 2 iterations on bf16 iterates
+EXPECT_BF16_LAUNCHES = dict(EXPECT_LAUNCHES, **{"gram/simt": 0,
+                                                "gram/wgmma": 10})
 MM_RAGGED = (1001, 333, 517)   # (m, k, n): no multiple of any tile
 MM_ALIGNED = 12_000  # rows of 12,000 bf16: TMA reads them as they lie
 MM_TRANSPOSED = 4096  # transposed (column-major) views: MN-major operands
@@ -102,15 +123,23 @@ PEAK_BYTES = 3.35e12
 K1_TOL = 5e-5       # max|err| / max|G|: f32 sums over m = 12k products
 K2_TOL_F32 = 1e-6   # max|err| / max|Y| in f32 (bf16: combine_bf16_ok)
 ACCURACY_TOL = 1e-4  # f32 eps * sqrt(n) ~ 1.3e-5, times a small factor
+# a bf16 compute solve, held to the reference's own bf16 criteria:
+# orthogonality of U and Vh <= default_orth_tol(bf16) = 8 eps(bf16)
+# (src/repro/resilience/health.py), and the top half of s within 5e-2
+# relative of the exact spectrum (tests/test_bf16_envelope.py)
+BF16_ORTH_TOL = 8 * 2.0 ** -7
+BF16_S_RTOL = 5e-2
 # K4 in f32, max error / max|v|: the d-term scores and the s-term sums
 # are rounded in another order than the plain version (measured ~1e-7).
 # bf16 is held elementwise by flash_bf16_bound, with this as its f32 term
 K4_TOL_F32 = 1e-5
 KERNEL_MODULES = ("gram", "grouped_combine", "matmul", "flash_attention")
-# K3 and K4 pick a route per call (kernels/matmul.py, flash_attention.py)
-ROUTED = ("matmul", "flash_attention")
+# K1, K3 and K4 pick a route per call (kernels/gram.py, matmul.py,
+# flash_attention.py)
+ROUTED = ("gram", "matmul", "flash_attention")
 ROUTES = ("simt", "wgmma")
-WGMMA_KERNELS = ("matmul_bf16", "flash_bf16")  # their entry points' names
+# the tensor-core kernels' entry points' names
+WGMMA_KERNELS = ("gram_bf16", "matmul_bf16", "flash_bf16")
 
 
 def say(*parts):
@@ -374,27 +403,64 @@ def flash_case(torch, device, rows, q, k, v, tag, route, got=None):
 
 def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged,
                  mm_aligned, mm_transposed):
+    from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import ops, ref
 
     say("== phase 3: kernel parity at full width")
     gen = torch.Generator(device=device).manual_seed(1234)
     rows = []
 
-    def k1_case(a, tag):
+    counters = kernel_modules()
+    paths = {}
+    bf = torch.bfloat16
+
+    def k1_case(a, tag, route, got0=None):
+        """K1 against its plain version at c = 0, below and above the clamp
+        floor: an f32 A within K1_TOL (max error / max|G|), a bf16 A
+        elementwise within the f32 sums' forward error bound
+        m eps (|A|^T |A|) (as K3 bf16 is held: the tensor cores sum in
+        another order and rounding than cuBLAS), G exactly symmetric, the
+        applied shift max(c, floor).  Each call reads
+        its route's counter around it (on the card: one launch, on
+        ``route``); ``got0``: the c = 0 result of a path run."""
         g0 = ref.gram_ref(a)
         floor = 8.0 * torch.finfo(torch.float32).eps * \
             float(torch.diagonal(g0).amax())
+        del g0
+        bound = None
+        if a.dtype == bf:
+            absa = a.float().abs()
+            bound = a.shape[0] * torch.finfo(torch.float32).eps * \
+                (absa.mT @ absa)
+            del absa
         for cname, c in (("0", 0.0), ("below_floor", 0.25 * floor),
                          ("above_floor", 4.0 * floor)):
-            got = ops.gram(a, c)
+            if cname == "0" and got0 is not None:
+                got = got0
+            else:
+                got = route_call(device, kgram, route,
+                                 lambda: ops.gram(a, c))
             want = ref.gram_ref(a, c)
-            err = float((got - want).abs().amax())
+            diff = (got - want).abs()
+            err = float(diff.amax())
             rel = err / float(want.abs().amax())
-            rows.append({"kernel": "gram", "case": f"{tag} c={cname}",
-                         "max_abs_err": err, "rel_err": rel})
-            say(f"K1 {tag} c={cname}: max_abs_err {err:.3e} rel "
-                f"{rel:.3e}")
-            check(rel <= K1_TOL, f"K1 {tag} c={cname}: rel {rel:.3e}")
+            row = {"kernel": "gram", "route": route,
+                   "case": f"{tag} c={cname}", "max_abs_err": err,
+                   "rel_err": rel}
+            line = f"K1 {tag} c={cname} [{route}]: max_abs_err {err:.3e} " \
+                f"rel {rel:.3e}"
+            if bound is None:
+                ok = rel <= K1_TOL
+            else:
+                ratio = float((diff / bound).amax())
+                row["max_err_over_bound"] = ratio
+                line += (f"; max |err| / (m eps |A|^T |A|) {ratio:.3e} "
+                         f"(tolerance 1)")
+                ok = bool((diff <= bound).all())
+            rows.append(row)
+            say(line)
+            check(got.dtype == torch.float32, f"K1 {tag}: {got.dtype}")
+            check(ok, f"K1 {tag} c={cname}: beyond its tolerance")
             check(bool(torch.equal(got, got.mT)), f"K1 {tag} not symmetric")
             if c:
                 # the shift the kernel applied, averaged over the diagonal
@@ -408,14 +474,38 @@ def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged,
                 check(abs(applied - expect) <= 0.05 * expect,
                       f"K1 {tag} c={cname}: shift {applied:.4e} applied, "
                       f"{expect:.4e} expected")
-            del got, want
+            del got, want, diff
+        del bound
 
+    # K1: one path per route (f32 on simt, bf16 on wgmma), each at the
+    # linverse width; then every other case, its route's counter read
+    # around it
     a32 = torch.randn((n, n), generator=gen, dtype=torch.float32,
                       device=device)
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        k1_case(a32.to(dt), f"{tag} {n}x{n}")
-        small = torch.randn(ragged, generator=gen, device=device).to(dt)
-        k1_case(small, f"{tag} {ragged[0]}x{ragged[1]}")
+    for route, a_, tag in (("simt", a32, f"f32 {n}x{n}"),
+                           ("wgmma", a32.to(bf), f"bf16 {n}x{n} (staged)")):
+        got, paths[f"gram/{route}"] = path_run(
+            torch, counters, lambda: ops.gram(a_))
+        say(f"kernels.ops.gram path, {tag}: launches "
+            f"{paths[f'gram/{route}']}")
+        check_path_launches(device, "gram", route, paths[f"gram/{route}"])
+        k1_case(a_, tag, route, got)
+        del got
+    k1_case(a_.mT, f"bf16 {n}x{n} (column-major view, staged)", "wgmma")
+    del a_
+    na = mm_aligned
+    a = torch.randn((na, na), generator=gen, device=device).to(bf)
+    k1_case(a, f"bf16 {na}x{na} (row-major, zero-copy)", "wgmma")
+    k1_case(a.mT, f"bf16 {na}x{na} (column-major view, zero-copy)",
+            "wgmma")
+    del a
+    small = torch.randn(ragged, generator=gen, device=device)
+    k1_case(small, f"f32 {ragged[0]}x{ragged[1]}", "simt")
+    for t in (small, small.mT.contiguous()):
+        k1_case(t.to(bf), f"bf16 {t.shape[0]}x{t.shape[1]}", "wgmma")
+    del small
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
     x32 = a32
     t32 = torch.randn((R, n, n), generator=gen, dtype=torch.float32,
@@ -453,10 +543,7 @@ def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged,
 
     # K3: its path is kernels.ops.matmul (no solver path reaches it), one
     # path per route; then every case, its route's counter read around it
-    counters = kernel_modules()
-    paths = {}
     b32 = t32[0]
-    bf = torch.bfloat16
     for route, (a_, b_, tag) in (
             ("simt", (a32, b32, f"f32 {n}x{n}")),
             ("wgmma", (a32.to(bf), b32.to(bf), f"bf16 {n}x{n} (staged)"))):
@@ -557,6 +644,67 @@ def library_f32_out(torch, clock, fn, ok, reps):
             "out_dtype=torch.float32)"}
 
 
+def k1_bound(m, n, itemsize, peak):
+    """K1's bound: G is symmetric, so the function needs m n (n + 1) flops
+    (its upper triangle); bytes: A read once, G (f32) written once."""
+    flops = float(m) * n * (n + 1)
+    nbytes = float(itemsize) * m * n + 4.0 * n * n
+    return (max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+            "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes")
+
+
+def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
+    """K1's times: the f32 case at 11,999^2 and bf16 at 11,999^2 (rows
+    not 16-byte aligned: staged) and at 12,000^2 (as it lies), each beside
+    its plain version, one library call and its bound; the bf16 staging
+    copy alone."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops, ref
+
+    m, n = a32.shape
+    rec = {"ms": clock.ms(lambda: ops.gram(a32), reps),
+           "plain_ms": clock.ms(lambda: ref.gram_ref(a32), reps),
+           "library_ms": clock.ms(lambda: a32.mT @ a32, reps),
+           "library": "a.T @ a", "shape": f"A f32 ({m}, {n}), c = 0"}
+    rec["bound_ms"], rec["bound_by"] = k1_bound(m, n, 4, PEAK_F32)
+    k1 = {"simt": rec}
+    gen = torch.Generator(device=device).manual_seed(97)
+    for size, tag in ((n, "staged"), (mm_aligned, "zero-copy")):
+        bf = a32.to(torch.bfloat16) if size == n else torch.randn(
+            (size, size), generator=gen, device=device).to(torch.bfloat16)
+
+        def lib_ok(got, bf=bf):
+            want = ref.gram_ref(bf)
+            return float((got - want).abs().amax()) <= \
+                K1_TOL * float(want.abs().amax())
+
+        # one call computing bf16 A^T A in f32 (bf16 in, f32 out), checked
+        # against the plain version first
+        lib = library_f32_out(
+            torch, clock,
+            lambda: torch.mm(bf.mT, bf, out_dtype=torch.float32), lib_ok,
+            reps)
+        rec = {"ms": clock.ms(lambda: ops.gram(bf), reps, warm=2),
+               "plain_ms": clock.ms(lambda: ref.gram_ref(bf), reps),
+               "library_ms": lib["ms"], "library": lib,
+               "shape": f"A bf16 ({size}, {size}), c = 0, {tag}"}
+        if tag == "staged":
+            # the copy into rows padded to a multiple of 8 elements, alone
+            rec["staging_ms"] = clock.ms(lambda: kmm.stage_bf16(bf), reps,
+                                         warm=2)
+        rec["bound_ms"], rec["bound_by"] = k1_bound(size, size, 2,
+                                                    PEAK_BF16)
+        k1["wgmma" if size == n else f"wgmma_{size}"] = rec
+        del bf
+    for key, rec in k1.items():
+        say(f"K1 {key} {rec['shape']}: kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, library {fmt_ms(rec['library_ms'])}"
+            f", bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})"
+            + (f"; staging copy alone {rec['staging_ms']:.3f} ms"
+               if "staging_ms" in rec else ""))
+    return k1
+
+
 def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
     from repro_torch.kernels import ops, ref
 
@@ -571,38 +719,8 @@ def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
     reps = 5 if device.type == "cuda" else 2
     recs = {}
 
-    k1 = {"ms": clock.ms(lambda: ops.gram(a32), reps),
-          "plain_ms": clock.ms(lambda: ref.gram_ref(a32), reps),
-          "library_ms": clock.ms(lambda: a32.mT @ a32, reps)}
-    bf = a32.to(torch.bfloat16)
-    k1_bf16_ms = clock.ms(lambda: ops.gram(bf), 3)
-    # one call computing bf16 A^T A in f32 (bf16 in, f32 out): checked
-    # against the plain version first, as addmm is for K2
-    k1_bf16_lib = library_f32_out(
-        torch, clock, lambda: torch.mm(bf.mT, bf, out_dtype=torch.float32),
-        lambda got: float((got - ref.gram_ref(bf)).abs().amax())
-        <= K1_TOL * float(ref.gram_ref(bf).abs().amax()), reps)
-    del bf
-    # G is symmetric: the function needs m n (n + 1) flops (its upper
-    # triangle); bytes: A read once, G written once
-    flops = float(m) * n * (n + 1)
-    nbytes = 4.0 * (m * n + n * n)
-    k1["bound_ms"] = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-    k1["bound_by"] = "operations" if flops / PEAK_F32 > \
-        nbytes / PEAK_BYTES else "bytes"
-    k1["shape"] = f"A f32 ({m}, {n}), c = 0"
-    k1["bf16_ms"] = k1_bf16_ms
-    k1["bf16_bound_ms"] = max(flops / PEAK_BF16,
-                              (2.0 * m * n + 4.0 * n * n) / PEAK_BYTES) * 1e3
-    k1["bf16_library_ms"] = k1_bf16_lib["ms"]
-    k1["bf16_library"] = k1_bf16_lib
-    say(f"K1 f32 ({m}, {n}): kernel {k1['ms']:.3f} ms, plain "
-        f"{k1['plain_ms']:.3f} ms, library (a.T @ a) "
-        f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms "
-        f"({k1['bound_by']}); bf16 kernel {k1_bf16_ms:.3f} ms, library "
-        f"(torch.mm(a.mT, a, out_dtype=f32)) {fmt_ms(k1_bf16_lib['ms'])} "
-        f"(bound {k1['bf16_bound_ms']:.3f} ms)")
-    recs["gram"] = k1
+    recs["gram"] = phase_times_gram(torch, device, clock, a32, mm_aligned,
+                                    reps)
 
     x = a32
     xrow = x.view(1, -1)
@@ -892,6 +1010,7 @@ def phase_dynamic(torch, device, clock, a, s_true):
         want = {"gram": 1 + 2 * R + (iters - 1), "grouped_combine": iters,
                 "matmul": 0, "flash_attention": 0}
         want.update({f"{k}/{r}": 0 for k in ROUTED for r in ROUTES})
+        want["gram/simt"] = want["gram"]
         if device.type == "cuda":
             check(launches == want, f"dynamic solve launched {launches}, "
                   f"expected {want} for {iters} iterations")
@@ -922,6 +1041,90 @@ def phase_dynamic(torch, device, clock, a, s_true):
     dyn.update(plain_s=secs, plain_s_diff=sdiff, plain_launches=launches,
                plain_iterations=int(info.iterations))
     return dyn
+
+
+def bf16_accuracy(torch, u, s, vh, s_ref, what):
+    """The phase-9 figures: finite f32 factors, orthogonality of U and Vh
+    (f64) within BF16_ORTH_TOL, and the top half of s within BF16_S_RTOL
+    relative of ``s_ref`` (the exact spectrum, or another solve's s)."""
+    from repro_torch.core.svd import orthogonality
+
+    n = s_ref.shape[0]
+    check(bool(torch.isfinite(u).all() and torch.isfinite(s).all()
+               and torch.isfinite(vh).all()), f"{what}: non-finite factors")
+    check(u.dtype == s.dtype == vh.dtype == torch.float32,
+          f"{what}: factors in {u.dtype}, {s.dtype}, {vh.dtype}")
+    check(u.shape == (n, n) and s.shape == (n,) and vh.shape == (n, n),
+          f"{what}: factor shapes")
+    top = slice(0, n // 2)
+    s_rel = float(((s[top].double() - s_ref[top].double()).abs()
+                   / s_ref[top].double()).amax())
+    rec = {"s_top_half_rel": s_rel,
+           "orth_u": float(orthogonality(u.double())),
+           "orth_vh": float(orthogonality(vh.double().mT))}
+    say(f"{what}: top-half max|s - s_ref|/s_ref {s_rel:.3e} (limit "
+        f"{BF16_S_RTOL:g}); orth(U) {rec['orth_u']:.3e}, orth(Vh) "
+        f"{rec['orth_vh']:.3e} (limit {BF16_ORTH_TOL:g})")
+    check(s_rel <= BF16_S_RTOL, f"{what}: top-half s error {s_rel:.3e}")
+    for name in ("orth_u", "orth_vh"):
+        check(rec[name] <= BF16_ORTH_TOL, f"{what}: {name} {rec[name]:.3e}")
+    return rec
+
+
+def phase_bf16(torch, device, clock, a, s_true):
+    """Phase 9: the f32 linverse matrix solved through a bf16 compute plan
+    (``compute_dtype="bfloat16"``: bf16 iterates, K1 on bf16 operands,
+    f32 factors back), then the same plan on the plain ``zolo_static``."""
+    import repro_torch.solver as S
+
+    say("== phase 9: bf16 compute plan (linverse through zolo_cuda, "
+        "compute_dtype=bfloat16)")
+    n = a.shape[0]
+    counters = kernel_modules()
+    cfg = S.SvdConfig(method="zolo_cuda", kappa=KAPPA,
+                      l0_policy="estimate_at_plan", r=R,
+                      compute_dtype="bfloat16")
+    p = S.plan(cfg, (n, n), torch.float32, device=device)
+    say(repr(p))
+    check(p.compute_dtype == torch.bfloat16 and len(p.schedule) == 2,
+          f"plan resolved to {p!r}, {len(p.schedule)} iterations")
+    runs = []
+    for label in ("warm", "timed"):
+        if device.type == "cuda" and label == "timed":
+            torch.cuda.reset_peak_memory_stats()
+        u, s, vh, secs, launches, _ = run_solve(torch, clock, p, a,
+                                                counters)
+        say(f"{label} solve: {secs:.3f} s, launches {launches}")
+        if device.type == "cuda":
+            check(launches == EXPECT_BF16_LAUNCHES, f"the bf16 compute "
+                  f"solve launched {launches}, expected "
+                  f"{EXPECT_BF16_LAUNCHES}")
+        runs.append((secs, launches))
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    rec = {"n": n, "kappa": KAPPA, "r": R, "compute_dtype": "bfloat16",
+           "warm_s": runs[0][0], "timed_s": runs[1][0],
+           "launches_per_solve": runs[1][1], "peak_bytes": peak}
+    say(f"wall {runs[1][0]:.3f} s; peak memory "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
+    rec.update(bf16_accuracy(torch, u, s, vh, s_true.to(s.device),
+                             "bf16 compute solve"))
+    del u, vh
+    rec["stages"] = phase_stages(torch, clock, p, a)
+
+    say("== phase 9b: plain yardstick of the bf16 compute plan "
+        "(zolo_static)")
+    ps = S.plan(cfg.replace(method="zolo_static"), (n, n), torch.float32,
+                device=device)
+    u, s_plain, vh, secs, launches, _ = run_solve(torch, clock, ps, a,
+                                                  counters)
+    check(all(v == 0 for v in launches.values()),
+          f"the plain bf16 compute path launched kernels: {launches}")
+    say(f"zolo_static bf16 compute solve: {secs:.3f} s")
+    rec["plain_s"] = secs
+    rec["plain"] = bf16_accuracy(torch, u, s_plain, vh, s,
+                                 "zolo_static against zolo_cuda (bf16)")
+    return rec
 
 
 def phase_stages(torch, clock, p, a):
@@ -1049,6 +1252,8 @@ def main(argv=None) -> int:
     record["main"] = main_rec
     record["dynamic"] = dyn_rec = phase_dynamic(torch, device, clock, a,
                                                 s_true)
+    record["bf16_compute"] = bf_rec = phase_bf16(torch, device, clock, a,
+                                                 s_true)
     del a
     record["seconds"] = time.perf_counter() - t_start
 
@@ -1063,42 +1268,45 @@ def main(argv=None) -> int:
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:31")}
-    # per record: (kernel, route or None, its times, its parity case)
-    entries = [("gram", None, times["gram"], "f32 %dx%d c=0" % (n, n)),
+    # per record: (kernel, route or None, its times, its parity case, the
+    # path whose launches it reports: a solve, or its kernels.ops entry)
+    solves = {"static_solve": main_rec, "dynamic_solve": dyn_rec,
+              "bf16_compute_solve": bf_rec}
+    entries = [("gram", "simt", times["gram"]["simt"],
+                "f32 %dx%d c=0" % (n, n), "static_solve"),
+               ("gram", "wgmma", times["gram"]["wgmma"],
+                "bf16 %dx%d (staged) c=0" % (n, n), "bf16_compute_solve"),
                ("grouped_combine", None, times["grouped_combine"],
-                "f32 r=%d xw=1" % R),
+                "f32 r=%d xw=1" % R, "static_solve"),
                ("matmul", "simt", times["matmul"]["simt"],
-                "f32 %dx%d" % (n, n)),
+                "f32 %dx%d" % (n, n), None),
                ("matmul", "wgmma", times["matmul"]["wgmma"],
-                "bf16 %dx%d (staged)" % (n, n)),
+                "bf16 %dx%d (staged)" % (n, n), None),
                ("flash_attention", "wgmma", times["flash_attention"]["wgmma"],
-                "bf16 s=%d" % attn["s"]),
+                "bf16 s=%d" % attn["s"], None),
                ("flash_attention", "simt", times["flash_attention"]["simt"],
-                "f32 s=%d" % attn["s"])]
-    for name, route, t, case in entries:
+                "f32 s=%d" % attn["s"], None)]
+    for name, route, t, case, main_path in entries:
         src, replaces = sources[name]
+        key = name if route is None else f"{name}/{route}"
         err = next(row["max_abs_err"] for row in record["parity"]
                    if row["kernel"] == name and row["case"] == case)
-        by_path = {"static_solve": main_rec["launches_per_solve"][name],
-                   "dynamic_solve": dyn_rec["launches_per_solve"][name]}
-        if route is not None:
-            # off the solver path: its own path is its kernels.ops entry,
-            # driven once per route
-            key = f"{name}/{route}"
+        by_path = {p: r["launches_per_solve"][key] for p, r in solves.items()}
+        if key in paths:
+            # its own path: its kernels.ops entry, driven once per route
             by_path[f"kernels.ops.{name}"] = paths[key][key]
-            launches = paths[key][key]
-        else:
-            launches = by_path["static_solve"]
-        rec = {"name": name if route is None else f"{name}/{route}",
-               "route": "cuda", "kernel_route": route, "source": src,
-               "replaces": replaces, "launches": launches,
+        launches = by_path[main_path or f"kernels.ops.{name}"]
+        rec = {"name": key, "route": "cuda", "kernel_route": route,
+               "source": src, "replaces": replaces, "launches": launches,
                "launches_by_path": by_path, "max_abs_err": err,
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"], "case": t["shape"]}
-        if name == "gram":
-            rec["bf16"] = {"ms": t["bf16_ms"], "bound_ms": t["bf16_bound_ms"],
-                           "library_ms": t["bf16_library_ms"]}
+        if key == "gram/wgmma":
+            rec["staging_ms"] = t["staging_ms"]
+            aligned = times["gram"][f"wgmma_{mm_aligned}"]
+            rec["aligned"] = {k: aligned[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
         kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -121,26 +121,29 @@ def _zolo_dynamic_planfn(res):
 
 
 def _cuda_planfn(inner):
-    """Wrap a kernel binding's plan_fn with its precision checks: an f64
-    plan raises (the kernels accumulate in f32 — use ``zolo_static`` or
-    ``zolo``), and a sub-f64 plan whose kappa hint exceeds the dtype's
+    """Wrap a kernel binding's plan_fn with its precision checks, keyed on
+    the compute dtype (``res.score_dtype``: the config's ``compute_dtype``
+    when set, the plan dtype otherwise): an f64 computation raises (the
+    kernels accumulate in f32 — use ``zolo_static`` or ``zolo``), and a
+    sub-f64 one whose kappa hint exceeds the dtype's
     :data:`CUDA_KAPPA_ENVELOPE` cap raises.  A dynamic plan without a
     kappa or l0 hint passes: its conditioning exists only at run time."""
 
     @functools.wraps(inner)
     def planfn(res):
-        if res.dtype.itemsize > 4:
+        eff = res.score_dtype
+        if eff.itemsize > 4:
             raise ValueError(
                 f"{res.method!r} runs f32-accumulating kernels; an "
-                f"{_registry.dtype_name(res.dtype)} plan would silently "
+                f"{_registry.dtype_name(eff)} computation would silently "
                 f"lose the precision it asked for — plan it with "
                 f"'zolo_static' (or 'zolo', dynamic)")
-        cap = _cuda_kappa_cap(res.dtype)
+        cap = _cuda_kappa_cap(eff)
         if cap is not None and res.kappa is not None \
                 and float(res.kappa) > cap:
             raise ValueError(
                 f"{res.method!r} planned at kappa={res.kappa:.3g} in "
-                f"{_registry.dtype_name(res.dtype)}: beyond the kernels' "
+                f"{_registry.dtype_name(eff)}: beyond the kernels' "
                 f"conditioning envelope (kappa <= {cap:.0e}); plan in "
                 f"float64 with 'zolo_static' or lower the kappa hint")
         return inner(res)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import zolo as _zolo
+from repro_torch.kernels import gram as _kgram
 from repro_torch.kernels import ops as _kops
 
 # Table 1 keeps r <= 8: a leading dim up to this is a term stack
@@ -36,11 +37,13 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
     second-pass Gram ((r, m, n) Q factors, r <= 8) unroll onto K1 one
     term at a time, as the Pallas bundle does, so the kernel launch count
     follows the reference's structure (1 + 2r launches in a CholeskyQR2
-    iteration at r > 1, 1 in a Cholesky one).  Each operand is made
-    row-major before a launch: a no-op for the engine's own layouts
-    (column-major solve results read through ``.mT``), an explicit copy
-    for anything else.  f64 is not taken: the kernels accumulate in f32,
-    and an f64 plan on ``zolo_cuda`` raises at plan time.
+    iteration at r > 1, 1 in a Cholesky one).  K1's bf16 route reads an
+    operand of either major as it lies (the engine's column-major solve
+    results, read through ``.mT``) and stages it at most once; its f32
+    route and K2 take row-major operands, so those are made contiguous
+    first (a no-op for a row-major one).  f64 is not taken: the kernels
+    accumulate in f32, and an f64 plan on ``zolo_cuda`` raises at plan
+    time.
     """
 
     def gram(x, c=0.0):
@@ -50,7 +53,9 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
             raise ValueError(f"cuda_zolo_ops.gram takes (m, n) or an r-term "
                              f"stack (r <= {MAX_TERM_STACK}, m, n); got "
                              f"{tuple(x.shape)}")
-        return _kops.gram(x.contiguous(), c)
+        if _kgram.gram_route(x) == "simt":
+            x = x.contiguous()
+        return _kops.gram(x, c)
 
     def polar_update(x, t, a, mhat):
         if x.ndim != 2:

@@ -38,7 +38,7 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "gram": {
         "zolo_gram_f32": (_P, _P, _I, _I, _LL, _P, _P),
-        "zolo_gram_bf16": (_P, _P, _I, _I, _LL, _P, _P),
+        "zolo_gram_bf16_wgmma": (_P, _I, _LL, _P, _I, _I, _P, _P),
     },
     "grouped_combine": {
         "zolo_grouped_combine": (_I, _I, _P, _P, _P, _LL, _I, _P, _P, _P),

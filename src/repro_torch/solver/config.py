@@ -1,9 +1,8 @@
 """SvdConfig: the frozen, hashable description of one solver configuration.
 
 Port of ``repro/solver/config.py`` with the same fields, defaults and
-validation.  Values that only the not-yet-ported slices give meaning to
-raise ``NotImplementedError`` naming what is missing: ``mode="grouped"``
-and ``compute_dtype``.
+validation.  A value that only a not-yet-ported slice gives meaning to
+raises ``NotImplementedError`` naming what is missing: ``mode="grouped"``.
 """
 
 from __future__ import annotations
@@ -11,9 +10,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 MODES = ("auto", "static", "dynamic", "grouped")
 L0_POLICIES = ("given", "estimate_at_plan", "runtime")
 SCALES = ("none", "power", "bound")
+# the floating dtypes a plan may factorize in, by name
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                  "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +51,9 @@ class SvdConfig:
                  (1.05x power-iteration estimate, the default), "bound"
                  (guaranteed sqrt(norm1 * norminf) cap) or "none" (the
                  caller guarantees sigma_max <= 1).
-    compute_dtype  not yet ported (must stay None).
+    compute_dtype  factorize in this dtype (a name in
+                 :data:`COMPUTE_DTYPES`), cast results back to the plan
+                 dtype; None computes in the input dtype.
     extra        extra backend kwargs as a sorted tuple of (name, value)
                  pairs (hashable passthrough).
     """
@@ -82,9 +88,10 @@ class SvdConfig:
             raise NotImplementedError(
                 "mode='grouped' is not yet ported to repro_torch (the "
                 "dense single-device slices only)")
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype is not yet ported to repro_torch")
+        if self.compute_dtype is not None and \
+                self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype={self.compute_dtype!r} not in "
+                             f"{tuple(COMPUTE_DTYPES)}")
         extra = self.extra
         if isinstance(extra, dict):
             extra = extra.items()

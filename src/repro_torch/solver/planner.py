@@ -16,9 +16,13 @@ LRU (128 entries; pinned plans are exempt).
 Modes "static" and "dynamic" resolve as in the reference (the mode and
 capability rules of ``repro/solver/planner.py``, without a mesh);
 dynamic backends scale themselves, so the plan's prescale is skipped for
-them.  Plans run on the CUDA card unless ``device="cpu"`` is passed.  Not
-yet ported: ``audit()``, ``svd_verified()``, the grouped mode and
-``compute_dtype`` (each raises ``NotImplementedError``).
+them.  ``compute_dtype`` factorizes in another dtype than the input's (a
+bf16 compute plan over f32 input): the canonical input is cast before the
+prescale, the results come back in the plan dtype, and the method is
+priced and envelope-capped in the compute dtype.  Plans run on the CUDA
+card unless ``device="cpu"`` is passed.  Not yet ported: ``audit()``,
+``svd_verified()`` and the grouped mode (each raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import norms as _norms
 from repro_torch.core import registry as _registry
 from repro_torch.core import zolo as _zolo
-from repro_torch.solver.config import SvdConfig
+from repro_torch.solver.config import COMPUTE_DTYPES, SvdConfig
 
 _PLANS_MAX = 128
 _PLANS: "collections.OrderedDict[tuple, SvdPlan]" = collections.OrderedDict()
@@ -113,6 +117,16 @@ class PlanResolution:
     qr_mode: Optional[str]
     qr_iters: Optional[int]
     nb: int
+    # the config's compute_dtype as a torch.dtype (None: compute in the
+    # plan dtype).  plan_fns that gate on precision (the kernels' envelope
+    # check) key on this, not ``dtype``: it is what the kernels see.
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def score_dtype(self) -> torch.dtype:
+        """The dtype the backend computes in, which prices and caps it."""
+        return self.compute_dtype if self.compute_dtype is not None \
+            else self.dtype
 
 
 # config knobs routed through plan_fn, and the output keys that count as
@@ -217,11 +231,16 @@ def _resolve(config: SvdConfig, shape, dtype, device):
     if r is None and kappa is not None:
         r = _coeffs.choose_r(kappa_eff)
 
+    # a bf16 compute plan over f32 inputs is priced (and envelope-capped)
+    # as bf16: the dtype the backend computes in
+    compute_dtype = (None if config.compute_dtype is None
+                     else COMPUTE_DTYPES[config.compute_dtype])
+    score_dtype = compute_dtype if compute_dtype is not None else dtype
     if explicit is not None:
         spec = explicit
     else:
         spec = _select_method(mode, m, n, r or _coeffs.choose_r(kappa_eff),
-                              kappa_eff, dtype, device,
+                              kappa_eff, score_dtype, device,
                               runtime_l0=(config.l0_policy == "runtime"))
     _validate_capability(spec, mode, config)
 
@@ -230,7 +249,7 @@ def _resolve(config: SvdConfig, shape, dtype, device):
                          device=device, r=r, l0=l0, kappa=kappa,
                          max_iters=config.max_iters,
                          qr_mode=config.qr_mode, qr_iters=config.qr_iters,
-                         nb=config.nb)
+                         nb=config.nb, compute_dtype=compute_dtype)
 
     # extras pass through verbatim; config knobs flow through plan_fn,
     # and an explicitly-set knob it does not consume is an error
@@ -317,6 +336,25 @@ class SvdPlan:
         """The precomputed schedule bound by the spec's ``plan_fn``."""
         return self._backend_kwargs.get("schedule")
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the backend factorizes in (the plan dtype unless the
+        config sets ``compute_dtype``)."""
+        return self.resolution.score_dtype
+
+    def flops_estimate(self) -> Optional[float]:
+        """Flop estimate from the spec's ``flops_fn``, on the basis
+        ``method="auto"`` scores with (the compute dtype); None when the
+        backend registers no cost model."""
+        if self._spec.flops_fn is None:
+            return None
+        res = self.resolution
+        kappa = res.kappa if res.kappa is not None else 1e6
+        r = res.r if res.r is not None else _coeffs.choose_r(kappa)
+        return float(self._spec.flops_fn(res.m, res.n, r=r, kappa=kappa,
+                                         dtype=res.score_dtype,
+                                         device=res.device))
+
     def audit(self, *, raise_on_fail: bool = True):
         raise NotImplementedError("SvdPlan.audit() is not yet ported to "
                                   "repro_torch")
@@ -326,9 +364,11 @@ class SvdPlan:
                                   "ported to repro_torch")
 
     def __repr__(self):
+        compute = "" if self.resolution.compute_dtype is None else \
+            f"compute_dtype={_registry.dtype_name(self.compute_dtype)}, "
         return (f"SvdPlan(method={self.method!r}, mode={self.mode!r}, "
                 f"r={self.r}, l0={self.l0}, shape={self.shape}, "
-                f"dtype={_registry.dtype_name(self.dtype)}, "
+                f"dtype={_registry.dtype_name(self.dtype)}, {compute}"
                 f"device={self.device}, eig={self.eig_method!r})")
 
     def _is_current(self) -> bool:
@@ -360,6 +400,8 @@ class SvdPlan:
         kw = dict(self._backend_kwargs, want_h=want_h)
         a_work, transposed = _zolo.polar_canonical(a)
         out_dtype = a_work.dtype
+        if self.resolution.compute_dtype is not None:
+            a_work = a_work.to(self.resolution.compute_dtype)
         alpha = None
         if (self.config.scale != "none" and not self._spec.dynamic
                 and not self._spec.is_oracle):

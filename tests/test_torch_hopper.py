@@ -1,17 +1,21 @@
-"""Routes of the port's tensor-core kernels: K3 (tiled matmul) and K4
-(causal flash attention) each have a ``"wgmma"`` route (TMA + ``wgmma``,
-bf16) and a ``"simt"`` route (FFMA, every other input).
+"""Routes of the port's tensor-core kernels: K1 (fused shifted Gram), K3
+(tiled matmul) and K4 (causal flash attention) each have a ``"wgmma"``
+route (TMA + ``wgmma``, bf16) and a ``"simt"`` route (FFMA, every other
+input).
 
 On the CPU: the route rules, which read dtypes, shapes, strides and data
 pointers only (so CPU tensors stand in for CUDA ones), the bf16 staging
-helper that gives TMA a leading dimension it can describe, and the build's
-rebuild rule for the shared ``csrc/*.cuh`` header.  No ``nvcc`` is needed.
+helper that gives TMA a leading dimension it can describe (K1 stages an
+operand at most once, keeping its major), the solver's K1 bundle handing
+bf16 operands over uncopied, and the build's rebuild rule for the shared
+``csrc/*.cuh`` header.  No ``nvcc`` is needed.
 
 The ``gpu``-marked tests launch each route on the card and hold it against
 the plain version with the bounds of ``tests/test_torch_kernels.py``
-(K3: k eps |alpha| (|A| @ |B|) elementwise; K4 bf16: 2^-8 (P|V| + |o|)
-plus 1e-5 max|v|; K4 f32: 1e-5 max|v|), reading each route's launch
-counter around its own call.  On the card:
+(K1 bf16: m eps (|A|^T |A|) elementwise, G exactly symmetric; K3:
+k eps |alpha| (|A| @ |B|) elementwise; K4 bf16: 2^-8 (P|V| + |o|) plus
+1e-5 max|v|; K4 f32: 1e-5 max|v|), reading each route's launch counter
+around its own call.  On the card:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
 tests/test_torch_hopper.py``.
 """
@@ -22,8 +26,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.core import zolo_cuda  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import gram as kgram  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -37,6 +43,87 @@ def _misaligned(shape, dtype):
     flat = torch.zeros(n + 8, dtype=dtype)
     off = (-(flat.data_ptr() // flat.element_size()) + 1) % 8
     return flat[off:off + n].view(shape)
+
+
+# --- K1 route and layout rules -----------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (BF, (24, 40), "wgmma"),
+    (BF, (1, 1), "wgmma"),
+    (BF, (11_999, 3), "wgmma"),
+    (BF, (0, 16), "simt"),     # nothing to load: G = c I
+    (BF, (16, 0), "simt"),
+    (F32, (24, 40), "simt"),
+])
+def test_gram_route_by_dtype_and_shape(dtype, shape, want):
+    assert kgram.gram_route(torch.zeros(shape, dtype=dtype)) == want
+    # the rule reads the dtype and shape, not the layout
+    assert kgram.gram_route(torch.zeros(shape[::-1], dtype=dtype).mT) == \
+        want
+
+
+@pytest.mark.parametrize("case,col,staged", [
+    ("row-major aligned", False, False),
+    ("column-major aligned", True, False),
+    ("rows of 11,999", False, True),
+    ("column-major, columns of 11,999", True, True),
+    ("misaligned base", False, True),
+    ("strided both ways", False, True),
+])
+def test_gram_operand_reads_as_it_lies_or_stages_once(case, col, staged,
+                                                      monkeypatch):
+    t = {
+        "row-major aligned": lambda: torch.randn(40, 24).to(BF),
+        "column-major aligned": lambda: torch.randn(24, 40).to(BF).mT,
+        "rows of 11,999": lambda: torch.randn(3, 11_999).to(BF),
+        "column-major, columns of 11,999": lambda: torch.randn(
+            5, 11_999).to(BF).mT,
+        "misaligned base": lambda: _misaligned((16, 24), BF),
+        "strided both ways": lambda: torch.randn(32, 48).to(BF)[::2, ::2],
+    }[case]()
+    copies = []
+
+    def counted(x):
+        copies.append(tuple(x.shape))
+        return kmm.stage_bf16(x)
+
+    monkeypatch.setattr(kgram, "stage_bf16", counted)
+    op, is_col, ld = kgram.gram_operand(t)
+    assert is_col == col
+    assert len(copies) == int(staged)
+    assert op.shape == t.shape and torch.equal(op, t)
+    assert ld % 8 == 0 and op.data_ptr() % 16 == 0
+    assert kmm.tma_layout(op) == ("col" if col else "row", ld)
+    assert (op.data_ptr() != t.data_ptr()) == staged
+    if staged and col:  # the staged copy keeps the column-major layout: no transpose
+        assert op.stride(0) == 1 and copies == [tuple(t.mT.shape)]
+
+
+def test_zolo_cuda_bundle_copies_only_f32_operands(monkeypatch):
+    """The solver's K1 bundle hands a bf16 operand of either major to K1 as
+    it lies (K1 stages at most once); an f32 one is made row-major, as
+    K1's f32 route needs."""
+    seen = []
+
+    def fake_gram(x, c=0.0):
+        seen.append(x)
+        return ref.gram_ref(x, c)
+
+    monkeypatch.setattr(zolo_cuda._kops, "gram", fake_gram)
+    ops_ = zolo_cuda.cuda_zolo_ops()
+    q1t = torch.randn(2, 24, 40)  # (r, n, m): a solve result, read as .mT
+    for dt in (BF, F32):
+        seen.clear()
+        x = q1t.mT.to(dt)
+        g = ops_.gram(x)
+        assert g.shape == (2, 24, 24)
+        for j, op in enumerate(seen):
+            assert torch.equal(op, x[j])
+            if dt == BF:
+                assert op.data_ptr() == x[j].data_ptr()
+            else:
+                assert op.is_contiguous()
 
 
 # --- K3 route rule -----------------------------------------------------------
@@ -176,7 +263,7 @@ def test_build_target_tracks_every_header(tmp_path, monkeypatch):
 def test_build_header_is_included_by_the_tensor_core_sources():
     headers = {p.name for p in build.CSRC.glob("*.cuh")}
     assert headers == {"hopper.cuh"}
-    for name in ("matmul", "flash_attention"):
+    for name in ("gram", "matmul", "flash_attention"):
         assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu"
                                            ).read_text()
     text = (build.CSRC / "hopper.cuh").read_text()
@@ -254,6 +341,66 @@ def test_matmul_route_matches_plain(cuda, case, route):
         bound = (k * torch.finfo(F32).eps * abs(float(alpha))
                  * (a.float().abs() @ b.float().abs()))
         assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50, 17), (17, 50), (40, 300),
+                                   (300, 200), (1000, 333), (129, 257),
+                                   (64, 256), (260, 384)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("layout", ["row", "col", "col aligned"])
+@pytest.mark.parametrize("shift", ["none", "zero", "below_floor",
+                                   "above_floor"])
+def test_gram_wgmma_route_matches_plain(cuda, shape, layout, shift):
+    """Ragged m and n below one tile, n not a multiple of 64, m < 64, both
+    majors (staged and as they lie), every shift case; one launch a call,
+    on the wgmma route."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    m, n = shape
+    if layout == "row":
+        a = torch.randn((m, n), generator=gen, device=cuda).to(BF)
+    elif layout == "col":
+        a = torch.randn((n, m), generator=gen, device=cuda).to(BF).mT
+    else:  # column-major with a leading dimension padded to 8: zero-copy
+        ld = -(-m // 8) * 8
+        a = torch.randn((n, ld), generator=gen, device=cuda).to(BF)
+        a = a[:, :m].mT
+    floor = 8.0 * torch.finfo(F32).eps * float(
+        torch.diagonal(ref.gram_ref(a)).amax())
+    c = {"none": 0.0, "zero": torch.zeros((), device=cuda),
+         "below_floor": 0.25 * floor, "above_floor": 4.0 * floor}[shift]
+    got = _route_call(kgram, "wgmma", lambda: ops.gram(a, c))
+    want = ref.gram_ref(a, c)
+    torch.cuda.synchronize()
+    assert got.dtype == F32 and got.shape == (n, n)
+    assert torch.equal(got, got.mT)
+    absa = a.float().abs()
+    bound = m * torch.finfo(F32).eps * (absa.mT @ absa)
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
+    if shift in ("below_floor", "above_floor"):
+        applied = (torch.diagonal(got).double()
+                   - torch.diagonal(ops.gram(a)).double()).mean().item()
+        assert applied == pytest.approx(max(c, floor), rel=0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32 (300, 200)", "f32 (1000, 333)",
+                                  "bf16 empty (0, 40)"])
+def test_gram_simt_route_matches_plain(cuda, case):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = {"f32 (300, 200)": lambda: torch.randn((300, 200), generator=gen,
+                                               device=cuda),
+         "f32 (1000, 333)": lambda: torch.randn((1000, 333), generator=gen,
+                                                device=cuda),
+         "bf16 empty (0, 40)": lambda: torch.zeros((0, 40), dtype=BF,
+                                                   device=cuda)}[case]()
+    for c in (0.0, 0.5):
+        got = _route_call(kgram, "simt", lambda: ops.gram(a, c))
+        want = ref.gram_ref(a, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got.mT)
+        assert float((got - want).abs().amax()) <= \
+            5e-5 * max(float(want.abs().amax()), 1e-30)
 
 
 def _flash_bound(q, k, v, want):
