@@ -10,7 +10,10 @@ Port of ``repro/core/coeffs.py``, both halves:
   same operations in the same order as the reference, so static
   schedules equal the reference's bit for bit.
 
-The QDWH coefficients belong to a later slice.
+The QDWH coefficients have the same two halves: ``qdwh_coeffs`` /
+``qdwh_l_update`` in torch (``jnp.cbrt`` becomes ``torch.pow(., 1/3)`` of
+a non-negative argument) and ``qdwh_coeffs_np`` ... ``qdwh_iter_count``
+in numpy, as the reference computes them.
 
 Notation follows the paper: for order ``r`` and lower bound ``l``,
 
@@ -194,3 +197,58 @@ def choose_r(kappa: float, max_groups: int = 3, tol: float = 1e-15) -> int:
         if it < best_iters:
             best_r, best_iters = r, it
     return best_r
+
+
+# ---------------------------------------------------------------------------
+# QDWH dynamic coefficients (paper eq. 2/3; Nakatsukasa-Bai-Gygi 2010)
+# ---------------------------------------------------------------------------
+
+
+def qdwh_coeffs(l):
+    """Dynamically weighted Halley coefficients (a, b, c) for the bound
+    ``l`` (a tensor, or a python number taken as float64), in ``l``'s
+    dtype and on its device."""
+    l = elliptic._as_tensor(l)
+    l2 = l * l
+    # cube root of a non-negative number (l <= 1): torch has no cbrt
+    d = torch.pow(4.0 * (1.0 - l2) / (l2 * l2), 1.0 / 3.0)
+    a = torch.sqrt(1.0 + d) + 0.5 * torch.sqrt(
+        8.0 - 4.0 * d + 8.0 * (2.0 - l2) / (l2 * torch.sqrt(1.0 + d)))
+    b = (a - 1.0) ** 2 / 4.0
+    c = a + b - 1.0
+    return a, b, c
+
+
+def qdwh_l_update(l, a, b, c):
+    """Map the lower bound through one QDWH step."""
+    l = elliptic._as_tensor(l)
+    return l * (a + b * l * l) / (1.0 + c * l * l)
+
+
+def qdwh_coeffs_np(l: float):
+    l2 = l * l
+    d = (4.0 * (1.0 - l2) / (l2 * l2)) ** (1.0 / 3.0)
+    a = np.sqrt(1.0 + d) + 0.5 * np.sqrt(
+        8.0 - 4.0 * d + 8.0 * (2.0 - l2) / (l2 * np.sqrt(1.0 + d))
+    )
+    b = (a - 1.0) ** 2 / 4.0
+    c = a + b - 1.0
+    return float(a), float(b), float(c)
+
+
+def qdwh_schedule_np(l0: float, max_iters: int = 20,
+                     tol: float = 1.0 - 1e-15) -> list:
+    """Static (a, b, c, l) schedule for QDWH from the initial bound l0."""
+    sched = []
+    l = float(l0)
+    for _ in range(max_iters):
+        a, b, c = qdwh_coeffs_np(l)
+        sched.append((a, b, c, l))
+        l = float(l * (a + b * l * l) / (1.0 + c * l * l))
+        if l >= tol:
+            break
+    return sched
+
+
+def qdwh_iter_count(kappa: float, tol: float = 1e-15) -> int:
+    return len(qdwh_schedule_np(1.0 / float(kappa), tol=1.0 - tol))

@@ -1,16 +1,21 @@
 """SVD via polar decomposition + symmetric eigendecomposition.
 
-Paper Algorithm 2 (Zolo-SVD):
+Paper Algorithm 2 (Zolo-SVD) and its QDWH-SVD sibling:
 
-    1.  A = Q_p H          (Zolo-PD)
-    2.  H = V diag(w) V^T  (eigh; the ELPA role)
+    1.  A = Q_p H          (Zolo-PD / QDWH-PD / scaled Newton)
+    2.  H = V diag(w) V^T  (eigh or block-Jacobi; the ELPA role)
     3.  U = Q_p V,  sigma = w  (descending)
+
+plus the direct baselines: ``torch.linalg.svd`` (the PDGESVD role) and a
+one-sided (Hestenes) block-Jacobi SVD, :func:`jacobi_svd`.
 
 Port of the dense single-device registrations of ``repro/core/svd.py`` —
 ``zolo`` (dynamic), ``zolo_static``, ``zolo_cuda`` and
 ``zolo_cuda_dynamic`` (the counterparts of ``zolo_pallas`` and
-``zolo_pallas_dynamic``), the ``svd`` oracle and ``eigh`` — and of
-``svd_residual``/``orthogonality``.
+``zolo_pallas_dynamic``), ``qdwh``, ``qdwh_static``, the ``newton``
+baseline, the ``svd`` oracle, and the eigensolvers ``eigh`` and
+``jacobi`` — of the one-call wrappers :func:`polar_decompose` and
+:func:`polar_svd`, and of ``svd_residual``/``orthogonality``.
 The assembly itself lives in :mod:`repro_torch.solver.planner`.
 """
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import eig as _eig
+from repro_torch.core import newton as _newton
 from repro_torch.core import norms as _norms
 from repro_torch.core import qdwh as _qdwh
 from repro_torch.core import registry as _registry
@@ -85,6 +91,22 @@ def _zolo_cuda_flops(m, n, *, r, kappa, grouped=False, dtype=None, sep=1,
     return _zolo_flops(m, n, r=r, kappa=kappa)
 
 
+def _qdwh_flops(m, n, *, r, kappa, grouped=False, dtype=None, sep=1,
+                device=None):
+    iters = _coeffs.qdwh_iter_count(float(kappa))
+    # per iteration: Gram product + n^3/3 Cholesky + two solves (the QR
+    # iterations cost more, but only the leading one or two use QR)
+    return iters * (2.0 * m * n * n + n ** 3 / 3.0 + 2.0 * m * n * n)
+
+
+def _newton_flops(m, n, *, r, kappa, grouped=False, dtype=None, sep=1,
+                  device=None):
+    if m != n:
+        return float("inf")  # scaled Newton needs a square nonsingular A
+    # explicit LU inverse (~2 n^3) per iteration, ~9 iterations
+    return 9.0 * 2.0 * n ** 3
+
+
 # --- plan-time static-kwarg binding (plan_fn) --------------------------------
 
 
@@ -103,6 +125,18 @@ def _zolo_static_planfn(res):
             "qr_iters": res.qr_iters if res.qr_iters is not None else 1}
 
 
+def _qdwh_static_planfn(res):
+    if res.l0 is None:
+        raise ValueError(
+            "a static QDWH schedule needs l0: set SvdConfig.l0, or "
+            "l0_policy='estimate_at_plan' with a kappa= hint")
+    kw = {"schedule": tuple(_coeffs.qdwh_schedule_np(
+        res.l0, max_iters=res.max_iters or 8))}
+    if res.qr_iters is not None:  # None keeps the c_k > 100 rule
+        kw["qr_iters"] = res.qr_iters
+    return kw
+
+
 def _zolo_dynamic_planfn(res):
     """Shared by the dynamic Zolo bindings (``zolo``, ``zolo_cuda_dynamic``):
     an explicit l0 (or plan-time estimate) short-circuits the run-time
@@ -118,6 +152,19 @@ def _zolo_dynamic_planfn(res):
     if res.qr_mode is not None:
         kw["first_mode"] = res.qr_mode
     return kw
+
+
+def _qdwh_dynamic_planfn(res):
+    kw = {}
+    if res.l0 is not None:
+        kw["l"] = res.l0
+    if res.max_iters is not None:
+        kw["max_iters"] = res.max_iters
+    return kw
+
+
+def _newton_planfn(res):
+    return {"max_iters": res.max_iters} if res.max_iters is not None else {}
 
 
 def _cuda_planfn(inner):
@@ -177,6 +224,22 @@ register_polar("zolo_cuda_dynamic", dynamic=True, flops_fn=_zolo_cuda_flops,
                            "tensor)")(
     _zolo_cuda.zolo_pd_cuda_dynamic)
 
+register_polar("qdwh", dynamic=True, flops_fn=_qdwh_flops,
+               plan_fn=_qdwh_dynamic_planfn,
+               description="dynamic QDWH-PD baseline")(_qdwh.qdwh_pd)
+register_polar("qdwh_static", flops_fn=_qdwh_flops,
+               plan_fn=_qdwh_static_planfn,
+               description="precomputed-schedule QDWH-PD")(
+    _qdwh.qdwh_pd_static)
+# baseline=True: the explicit inverse each iteration makes Newton the
+# accuracy/stability baseline, not a production pick — its flop count is
+# kappa-insensitive and would otherwise win method="auto" on every square
+# problem
+register_polar("newton", dynamic=True, baseline=True,
+               flops_fn=_newton_flops, plan_fn=_newton_planfn,
+               description="scaled Newton PD baseline")(
+    _newton.scaled_newton_pd)
+
 
 @register_polar("svd", is_oracle=True,
                 description="torch.linalg.svd oracle (PDGESVD role)")
@@ -197,6 +260,117 @@ def _svd_oracle_polar(a, *, want_h: bool = True, **_):
 @register_eig("eigh", description="LAPACK/cuSOLVER symmetric eigensolver")
 def _eigh_backend(h, **_):
     return _eig.eigh(h)
+
+
+@register_eig("jacobi", description="padded block-Jacobi (ELPA role)")
+def _jacobi_backend(h, *, nb: int = 32, **_):
+    return _eig.padded_block_jacobi_eigh(h, nb=nb)
+
+
+def polar_decompose(a, method: str = "zolo", **kw):
+    """Polar decomposition in one call.  Returns (q, h, info) with
+    A ~= Q H.
+
+    A thin wrapper over the plan path: the call resolves a cached
+    :class:`repro_torch.solver.SvdPlan` for (shape, dtype, device,
+    config) — the one dispatch route to a registered backend — on
+    ``a``'s device, with ``scale="none"`` (the caller pre-scales for a
+    static backend, as with the reference's wrapper).  Hold a plan for
+    repeated solves (``repro_torch.solver.plan``).
+
+    H (when the backend's ``want_h`` asks for it) is the *right* polar
+    factor, square with trailing dim n = a.shape[-1]: for m < n the
+    canonical factorization A^T = Q_w H_w is re-oriented as
+    H = Q_w H_w Q_w^T, so A = Q H holds in every orientation."""
+    import repro_torch.solver.planner as _planner
+
+    pl, runtime_kw = _planner.plan_for_call(
+        a.shape[-2:], a.dtype, method=method, device=a.device, kw=kw)
+    return pl._polar_impl(a, extra=runtime_kw)
+
+
+def polar_svd(a, method: str = "zolo", eig_method: str = "eigh",
+              nb: int = 32, **kw):
+    """SVD A = U diag(s) V^H via PD + EIG (paper Alg. 2) in one call.
+
+    Returns (u, s, vh) with s descending — a drop-in for
+    ``torch.linalg.svd(a, full_matrices=False)``.  Like
+    :func:`polar_decompose`, a thin wrapper over the plan path."""
+    import repro_torch.solver.planner as _planner
+
+    kw.setdefault("want_h", True)
+    pl, runtime_kw = _planner.plan_for_call(
+        a.shape[-2:], a.dtype, method=method, eig_method=eig_method,
+        nb=nb, device=a.device, kw=kw)
+    return pl._svd_impl(a, extra=runtime_kw)
+
+
+def jacobi_svd(a, nb: int = 32, max_sweeps: int = _eig.MAX_SWEEPS,
+               tol=None):
+    """One-sided (Hestenes) block-Jacobi SVD — direct-method baseline.
+
+    Orthogonalizes column blocks pairwise with the eigensolver's
+    tournament schedule, sweeping (a host loop) until the normalized
+    off-diagonal measure of X^T X is at most ``tol`` (default 30 eps) or
+    ``max_sweeps``.  Requires n % nb == 0 and n // nb even.  Returns
+    (u, s, vh), s descending.
+
+    Each block rotation — the pair's Gram, its ``eigh`` and the products
+    with it — is computed in float64 whatever ``a``'s dtype, and the
+    rotated columns are stored back in it.  The reference computes them
+    in the input dtype: an f32 Gram squares the block's conditioning, so
+    the rotations of its small columns lose their orthogonality (on the
+    linverse spectrum, kappa 9.06e3, the reference's U misses the f32
+    limit of 1e-4 already at n = 128: tests/test_torch_eig.py).  For f64
+    input the arithmetic is the reference's.
+
+    ``max_sweeps`` defaults to the eigensolver's cap,
+    :data:`repro_torch.core.eig.MAX_SWEEPS` (40); the reference's 16
+    leaves that spectrum unconverged at n = 2,048."""
+    if a.ndim != 2:
+        raise ValueError(f"jacobi_svd takes one (m, n) matrix; got shape "
+                         f"{tuple(a.shape)}")
+    m, n = a.shape
+    dtype = a.dtype
+    if n % nb != 0 or (n // nb) % 2 != 0:
+        raise ValueError(
+            f"jacobi_svd needs n divisible by nb with an even block "
+            f"count; got a.shape={tuple(a.shape)}, nb={nb} "
+            f"(n % nb = {n % nb}, n // nb = {n // nb})")
+    ids = _eig._pair_columns(n // nb, nb, a.device)
+    tol = tol if tol is not None else 30 * torch.finfo(dtype).eps
+    hi = torch.float64  # the block rotations' precision (see above)
+    tiny = torch.finfo(dtype).tiny
+
+    def off_measure(x):
+        g = x.mT @ x
+        d = torch.sqrt(torch.clamp(torch.diagonal(g), min=tiny))
+        gn = g / torch.outer(d, d)
+        return torch.sqrt(torch.sum(torch.tril(gn, -1) ** 2)) / n
+
+    x = a.clone()
+    v = torch.eye(n, dtype=dtype, device=a.device)
+    sweeps, off = 0, 1.0
+    while sweeps < max_sweeps and off > tol:  # NaN stops
+        for col_ids in ids:
+            flat = col_ids.reshape(-1)
+            blocks = x[:, flat].reshape(m, -1, 2 * nb).transpose(0, 1)
+            bh = blocks.to(hi)
+            _, j = torch.linalg.eigh(bh.mT @ bh)
+            # descending eigenvalue order keeps big columns first
+            j = torch.flip(j, dims=[-1])
+            x[:, flat] = (bh @ j).to(dtype).transpose(0, 1).reshape(m, -1)
+            vblocks = v[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
+            v[:, flat] = (vblocks.to(hi) @ j).to(dtype).transpose(
+                0, 1).reshape(n, -1)
+        sweeps += 1
+        off = float(off_measure(x))
+    s = torch.linalg.vector_norm(x, dim=0)
+    order = torch.argsort(-s, stable=True)
+    s = s[order]
+    u = x[:, order] / torch.clamp(s[None, :], min=tiny)
+    vh = v[:, order].mT
+    return u, s, vh
 
 
 def svd_residual(a, u, s, vh, *, v0=None):

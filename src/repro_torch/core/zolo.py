@@ -10,19 +10,21 @@ plain torch ops here, the hand-written CUDA kernels in
 
 Within one address space the Gram product ``G = X^T X`` is computed once
 per iteration and shared by the r shifted factorizations
-``Z_j = G + c_{2j-1} I`` (Gram sharing).  The first iteration uses the
-shifted CholeskyQR2 of ``[X; sqrt(c) I]``; the rest the shared-Gram
-Cholesky term.  The structured Householder term (the reference's
-``core/structured_qr.py``) belongs to a later slice: asking for it, or a
-dynamic ``first_mode="auto"`` that lands in its regime, raises
-``NotImplementedError``.
+``Z_j = G + c_{2j-1} I`` (Gram sharing).  The first (ill-conditioned)
+iteration uses a QR of ``[X; sqrt(c) I]`` — the paper-faithful blocked
+structured Householder QR (:mod:`repro_torch.core.structured_qr`) or the
+shifted CholeskyQR2 — picked by ``qr_mode``; the rest the shared-Gram
+Cholesky term.
 
 Differences from the JAX reference, each deliberate:
 
 * ``torch.linalg.cholesky`` raises on an indefinite matrix where
-  ``jnp.linalg.cholesky`` returns NaN; :func:`_cholesky` uses
-  ``cholesky_ex`` and NaN-fills the failed batch entries, so the failure
-  mode (NaN factors) matches.
+  ``jnp.linalg.cholesky`` returns NaN; :func:`_cholesky`
+  (:func:`repro_torch.core.linalg.cholesky`) NaN-fills the failed batch
+  entries instead, so the failure mode (NaN factors) matches.
+* The Householder term runs its r structured QRs one after another, as
+  the reference does (a batched r = 4 stack would hold four (m+n) x n
+  stacks, ~4 x 3 GB at n = 12,000).
 * Every triangular solve is a *left* solve on transposed operands
   (``X^T``, ``Q1^T``): the reference's chol term already has this form,
   and its CholeskyQR2 right-solves ``Q1 = X L^{-T}`` are the same
@@ -43,8 +45,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import coeffs as _coeffs
+from repro_torch.core import linalg as _linalg
 from repro_torch.core import norms as _norms
 from repro_torch.core.qdwh import PolarInfo, form_h
+from repro_torch.core.structured_qr import \
+    structured_qr_q1q2 as _structured_qr_q1q2
 from repro_torch.kernels import ref as _kref
 
 # The shift clamp and the plain shifted Gram are the Gram kernel's plain
@@ -96,13 +101,8 @@ class ZoloOps(NamedTuple):
 DEFAULT_OPS = ZoloOps()
 
 
-def _cholesky(z: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; a batch entry that is not positive definite
-    comes out all-NaN (``jnp.linalg.cholesky``'s failure mode) instead of
-    raising.  No host sync: the fill is a masked device op."""
-    l, info = torch.linalg.cholesky_ex(z)
-    bad = (info != 0)[..., None, None]
-    return l.masked_fill_(bad, float("nan"))
+# lower Cholesky factor, all-NaN for an entry that is not positive definite
+_cholesky = _linalg.cholesky
 
 
 def _first_pass_ridge(z, c_eff, dtype):
@@ -205,6 +205,27 @@ def term_sum_cholqr2(x, c_odd, a, *, ops: ZoloOps = DEFAULT_OPS):
     return torch.einsum("j,jkm,jkn->mn", a.to(fdtype) / sqrt_c, q1t, q2t)
 
 
+def term_sum_householder(x, c_odd, a, block: int = 32, *,
+                         ops: ZoloOps = DEFAULT_OPS):
+    """sum_j (a_j / sqrt(c_j)) Q1_j Q2_j^T via the blocked *structured*
+    Householder QR of [X; sqrt(c_j) I] (MPDGEQRF/MPDORGQR analogue, §3.1)
+    over the given odd-coefficient slice, one term after another.
+
+    ``ops`` is accepted for term-signature uniformity only: the blocked
+    Householder QR has no kernel, so its products run as torch ops (in
+    f32-or-better: a bf16 iterate's term runs in f32)."""
+    dtype = _kref.accum_dtype(x.dtype)
+    x = x.to(dtype)
+    total = None
+    for j in range(c_odd.shape[0]):
+        q1, q2 = _structured_qr_q1q2(x, torch.sqrt(c_odd[j]).to(dtype),
+                                     block=block)
+        term = (a[j] / torch.sqrt(c_odd[j])).to(dtype) * (q1 @ q2.mT)
+        del q1, q2
+        total = term if total is None else total.add_(term)
+    return total
+
+
 ITER_MODES = ("chol", "cholqr2", "householder")
 
 
@@ -216,11 +237,12 @@ def _validate_iter_mode(name: str, value: str, extra=()) -> None:
 
 
 def zolo_iteration(x, c_odd, a, mhat, *, mode: str = "chol",
-                   ops: ZoloOps = DEFAULT_OPS):
+                   ops: ZoloOps = DEFAULT_OPS, hh_block: int = 32):
     """THE Zolotarev iteration body (Alg. 1 step 4):
     X -> mhat * (X + sum_j a_j T_j(c_{2j-1})), with the shifted
-    factorization for T_j picked by ``mode`` ("chol" | "cholqr2";
-    "householder" is not yet ported)."""
+    factorization for T_j picked by ``mode``: "chol" (shared-Gram
+    Cholesky), "cholqr2" (shifted CholeskyQR2) or "householder" (the
+    blocked structured Householder QR, panels of ``hh_block`` columns)."""
     if mode == "chol":
         # (r, n, m) left-solve results are column-major, so the transposed
         # view is a row-major (r, m, n) stack: no copy before the combine
@@ -231,11 +253,7 @@ def zolo_iteration(x, c_odd, a, mhat, *, mode: str = "chol",
         # combine sees one pre-summed term with unit weight
         t = term_sum_cholqr2(x, c_odd, a, ops=ops)
     elif mode == "householder":
-        # also the dynamic "auto" first iteration below l0 = 10 sqrt(eps)
-        raise NotImplementedError(
-            "qr_mode='householder' (the structured Householder QR, "
-            "repro/core/structured_qr.py) is not yet ported to repro_torch; "
-            "use 'cholqr2' or 'chol'")
+        t = term_sum_householder(x, c_odd, a, block=hh_block, ops=ops)
     else:
         _validate_iter_mode("mode", mode)
     one = torch.ones((1,), dtype=_kref.accum_dtype(x.dtype), device=x.device)
@@ -243,7 +261,8 @@ def zolo_iteration(x, c_odd, a, mhat, *, mode: str = "chol",
 
 
 def run_schedule(x, c_odd, a_wts, mhats, *, qr_mode: str = "cholqr2",
-                 qr_iters: int = 1, ops: ZoloOps = DEFAULT_OPS):
+                 qr_iters: int = 1, ops: ZoloOps = DEFAULT_OPS,
+                 hh_block: int = 32):
     """THE static schedule source: the precomputed coefficient schedule,
     unrolled over :func:`zolo_iteration`.
 
@@ -253,7 +272,7 @@ def run_schedule(x, c_odd, a_wts, mhats, *, qr_mode: str = "cholqr2",
     for i in range(c_odd.shape[0]):
         mode = qr_mode if i < qr_iters else "chol"
         x = zolo_iteration(x, c_odd[i], a_wts[i], mhats[i], mode=mode,
-                           ops=ops)
+                           ops=ops, hh_block=hh_block)
     return x
 
 
@@ -265,8 +284,8 @@ def _residual(ops: ZoloOps, x_new, x, dtype):
 
 
 def run_dynamic(x0, l0, r: int, *, eps: float, max_iters: int = 8,
-                first_mode: str = "auto", ops: ZoloOps = DEFAULT_OPS,
-                allow_householder: bool = True):
+                first_mode: str = "auto", hh_block: int = 32,
+                ops: ZoloOps = DEFAULT_OPS, allow_householder: bool = True):
     """THE dynamic schedule source: Zolotarev coefficients computed at
     run time from the running lower bound (on the device, in ``l0``'s
     dtype), so one code path serves any conditioning.
@@ -274,16 +293,14 @@ def run_dynamic(x0, l0, r: int, *, eps: float, max_iters: int = 8,
     The *first* iteration is peeled off and picks its factorization by
     stability regime (the paper's QR-first policy):
 
-      l0 <  10 sqrt(eps)  -> structured Householder QR (not yet ported)
+      l0 <  10 sqrt(eps)  -> structured Householder QR (paper §3.1)
       l0 <  0.05          -> shifted CholeskyQR2
       else                -> shared-Gram Cholesky
 
     ``first_mode`` is "auto" (the rule above), "householder", "cholqr2"
     or "chol".  ``allow_householder=False`` substitutes the shifted
-    CholeskyQR2 term in the extreme regime, as the reference defines it;
-    with the default, a first iteration in that regime raises
-    ``NotImplementedError`` (from :func:`zolo_iteration`) rather than
-    quietly substituting.  The rest
+    CholeskyQR2 term in the extreme regime, as the reference defines it
+    (for an executor that cannot run the structured QR).  The rest
     are shared-Gram Cholesky iterations, stopped by the paper's residual
     rule ||X_k+1 - X_k||_F / ||X_k+1||_F <= max(eps^(1/(2r+1)),
     4 eps(iterate)) or by ``max_iters``.
@@ -311,7 +328,8 @@ def run_dynamic(x0, l0, r: int, *, eps: float, max_iters: int = 8,
                 "cholqr2" if l0_host >= hh_thresh else
                 "householder" if allow_householder else "cholqr2")
     c_sel, a_sel = ops.coeff_select(c0[0::2], a0)
-    x1 = zolo_iteration(x0, c_sel, a_sel, m0, mode=mode, ops=ops)
+    x1 = zolo_iteration(x0, c_sel, a_sel, m0, mode=mode, ops=ops,
+                        hh_block=hh_block)
     res = _residual(ops, x1, x0, dtype)
     l = torch.clamp(_coeffs.zolo_l_update(l0, c0, m0), 0.0, 1.0 - eps)
 
@@ -329,7 +347,8 @@ def run_dynamic(x0, l0, r: int, *, eps: float, max_iters: int = 8,
 
 def zolo_pd(a, r: int = 3, *, alpha=None, l=None, max_iters: int = 8,
             eps: Optional[float] = None, want_h: bool = True,
-            first_mode: str = "auto", ops: Optional[ZoloOps] = None):
+            first_mode: str = "auto", hh_block: int = 32,
+            ops: Optional[ZoloOps] = None):
     """Dynamic Zolo-PD (paper Alg. 1) of ``a`` with m >= n — the (dynamic
     schedule, ``ops``) binding of the engine; it scales itself.
 
@@ -356,7 +375,8 @@ def zolo_pd(a, r: int = 3, *, alpha=None, l=None, max_iters: int = 8,
     l0 = torch.clamp(l0, 4 * eps, 1.0 - eps)
     x, l_fin, k, res, conv = run_dynamic(x0, l0, r, eps=eps,
                                          max_iters=max_iters,
-                                         first_mode=first_mode, ops=ops)
+                                         first_mode=first_mode,
+                                         hh_block=hh_block, ops=ops)
     info = PolarInfo(
         iterations=torch.tensor(k, dtype=torch.int32, device=a.device),
         residual=res, l_final=l_fin, converged=conv,
@@ -370,12 +390,16 @@ def zolo_pd_static(a, *, l0: Optional[float] = None,
                    r: Optional[int] = None, max_iters: int = 6,
                    want_h: bool = False, qr_mode: str = "cholqr2",
                    qr_iters: int = 1, hermitian_source=None,
-                   schedule=None, ops: Optional[ZoloOps] = None):
+                   schedule=None, ops: Optional[ZoloOps] = None,
+                   hh_block: int = 32):
     """Unrolled Zolo-PD with a precomputed coefficient schedule — the
     (static schedule, ``ops``) binding of the engine.
 
     ``a`` must be pre-scaled (sigma_max <= 1) with singular values in
-    [l0, 1].  A ``schedule`` (sequence of
+    [l0, 1].  The first ``qr_iters`` iterations use ``qr_mode``
+    ("cholqr2" | "householder" | "chol", Householder panels of
+    ``hh_block`` columns); the rest the shared-Gram Cholesky term.  A
+    ``schedule`` (sequence of
     :class:`repro_torch.core.coeffs.ZoloIteration`, e.g. bound by an
     ``SvdPlan``) takes precedence over ``l0``/``r``/``max_iters``.
     Returns (Q, H or None, PolarInfo)."""
@@ -396,7 +420,7 @@ def zolo_pd_static(a, *, l0: Optional[float] = None,
     a_wts = torch.tensor([it.a for it in sched], dtype=cdt, device=dev)
     mhats = torch.tensor([it.mhat for it in sched], dtype=cdt, device=dev)
     x = run_schedule(a, c_odd, a_wts, mhats, qr_mode=qr_mode,
-                     qr_iters=qr_iters, ops=ops)
+                     qr_iters=qr_iters, ops=ops, hh_block=hh_block)
     src = a if hermitian_source is None else hermitian_source
     f32 = torch.float32
     info = PolarInfo(

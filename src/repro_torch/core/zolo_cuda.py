@@ -37,7 +37,8 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
     second-pass Gram ((r, m, n) Q factors, r <= 8) unroll onto K1 one
     term at a time, as the Pallas bundle does, so the kernel launch count
     follows the reference's structure (1 + 2r launches in a CholeskyQR2
-    iteration at r > 1, 1 in a Cholesky one).  K1's bf16 route reads an
+    iteration at r > 1, 1 in a Cholesky one, none in a structured
+    Householder one, whose QRs are torch ops; K2 once per iteration).  K1's bf16 route reads an
     operand of either major as it lies (the engine's column-major solve
     results, read through ``.mT``) and stages it at most once; its f32
     route and K2 take row-major operands, so those are made contiguous
@@ -71,25 +72,26 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
 def zolo_pd_cuda(a, *, l0: Optional[float] = None, r: Optional[int] = None,
                  max_iters: int = 6, want_h: bool = False,
                  qr_mode: str = "cholqr2", qr_iters: int = 1,
-                 hermitian_source=None, schedule=None):
+                 hermitian_source=None, schedule=None, hh_block: int = 32):
     """Unrolled Zolo-PD (the contract of
     :func:`repro_torch.core.zolo.zolo_pd_static`) with the iteration's
-    Gram products and r-term combine on K1 and K2.  Returns
-    (Q, H or None, PolarInfo)."""
+    Gram products and r-term combine on K1 and K2 (a Householder
+    iteration's structured QRs are torch ops; its combine is K2).
+    Returns (Q, H or None, PolarInfo)."""
     return _zolo.zolo_pd_static(
         a, l0=l0, r=r, max_iters=max_iters, want_h=want_h,
         qr_mode=qr_mode, qr_iters=qr_iters,
         hermitian_source=hermitian_source, schedule=schedule,
-        ops=cuda_zolo_ops())
+        ops=cuda_zolo_ops(), hh_block=hh_block)
 
 
 def zolo_pd_cuda_dynamic(a, r: int = 3, *, alpha=None, l=None,
                          max_iters: int = 8, eps=None, want_h: bool = True,
-                         first_mode: str = "auto"):
+                         first_mode: str = "auto", hh_block: int = 32):
     """Dynamic Zolo-PD (the contract of
     :func:`repro_torch.core.zolo.zolo_pd`) with the iteration's Gram
     products and r-term combine on K1 and K2 inside the residual-stopped
     loop.  Returns (Q, H or None, PolarInfo)."""
     return _zolo.zolo_pd(a, r, alpha=alpha, l=l, max_iters=max_iters,
                          eps=eps, want_h=want_h, first_mode=first_mode,
-                         ops=cuda_zolo_ops())
+                         hh_block=hh_block, ops=cuda_zolo_ops())

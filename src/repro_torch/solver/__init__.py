@@ -16,6 +16,7 @@ from repro_torch.solver.planner import (
     cache_stats,
     pin,
     plan,
+    plan_for_call,
     resolve_device,
     unpin,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "cache_stats",
     "pin",
     "plan",
+    "plan_for_call",
     "resolve_device",
     "unpin",
 ]

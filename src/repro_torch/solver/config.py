@@ -40,10 +40,11 @@ class SvdConfig:
                  estimates the bound on the device; ``l0`` must be None).
     kappa        condition-number hint (auto scoring, r choice, l0).
     max_iters    schedule length cap; None keeps the backend default.
-    qr_mode      first-iteration factorization ("cholqr2" | "chol";
-                 "householder" is not yet ported); None: the backend's
-                 default ("cholqr2" static, "auto" dynamic — whose
-                 Householder regime, l0 < 10 sqrt(eps), raises).
+    qr_mode      first-iteration factorization ("cholqr2" | "householder"
+                 | "chol"; a dynamic backend also takes "auto"); None:
+                 the backend's default ("cholqr2" static, "auto" dynamic:
+                 structured Householder below l0 = 10 sqrt(eps),
+                 CholeskyQR2 below 0.05, Cholesky above).
     qr_iters     how many leading iterations use ``qr_mode`` (default 1).
     nb           block size for a block-Jacobi eigensolver.
     scale        pre-scaling by the plan for precomputed-schedule

@@ -20,7 +20,9 @@ them.  ``compute_dtype`` factorizes in another dtype than the input's (a
 bf16 compute plan over f32 input): the canonical input is cast before the
 prescale, the results come back in the plan dtype, and the method is
 priced and envelope-capped in the compute dtype.  Plans run on the CUDA
-card unless ``device="cpu"`` is passed.  Not yet ported: ``audit()``,
+card unless ``device="cpu"`` is passed; the one-call wrappers
+(``polar_decompose``/``polar_svd``) plan on their input's device through
+:func:`plan_for_call`.  Not yet ported: ``audit()``,
 ``svd_verified()`` and the grouped mode (each raises
 ``NotImplementedError``).
 """
@@ -40,6 +42,7 @@ from repro_torch.core import registry as _registry
 from repro_torch.core import zolo as _zolo
 from repro_torch.solver.config import COMPUTE_DTYPES, SvdConfig
 
+_UNSET = object()  # want_h not given: the backend's own default
 _PLANS_MAX = 128
 _PLANS: "collections.OrderedDict[tuple, SvdPlan]" = collections.OrderedDict()
 _PINNED: set = set()  # plan keys exempt from LRU eviction
@@ -391,13 +394,19 @@ class SvdPlan:
             alpha = _norms.sigma_max_upper(x)
         return (x / alpha.to(x.dtype)).to(x.dtype), alpha
 
-    def _polar_canonical(self, a, want_h):
+    def _polar_canonical(self, a, want_h=_UNSET, extra=None):
         """Run the backend on the canonical (m >= n) orientation.
 
+        ``extra``: per-call backend kwargs (:func:`plan_for_call`'s
+        runtime ones); ``want_h`` left unset keeps the backend's default.
         Returns (q, h, info, transposed, alpha, out_dtype) with q/h still
         canonical and h of the *scaled* input when ``alpha`` is not None.
         """
-        kw = dict(self._backend_kwargs, want_h=want_h)
+        kw = dict(self._backend_kwargs)
+        if extra:
+            kw.update(extra)
+        if want_h is not _UNSET:
+            kw["want_h"] = want_h
         a_work, transposed = _zolo.polar_canonical(a)
         out_dtype = a_work.dtype
         if self.resolution.compute_dtype is not None:
@@ -411,9 +420,9 @@ class SvdPlan:
         q, h, info = self._spec.fn(a_work, **kw)
         return q, h, info, transposed, alpha, out_dtype
 
-    def _polar_impl(self, a, want_h):
+    def _polar_impl(self, a, want_h=_UNSET, extra=None):
         q, h, info, transposed, alpha, out_dtype = \
-            self._polar_canonical(a, want_h)
+            self._polar_canonical(a, want_h, extra)
         if h is not None and alpha is not None:
             h = h * alpha.to(h.dtype)
         if transposed:
@@ -427,9 +436,9 @@ class SvdPlan:
             h = h.to(out_dtype)
         return q, h, info
 
-    def _svd_impl_info(self, a):
+    def _svd_impl_info(self, a, extra=None):
         q, h, info, transposed, alpha, out_dtype = \
-            self._polar_canonical(a, True)
+            self._polar_canonical(a, True, extra)
         # no sub-f32 eigensolver: a bf16 H goes to eigh in f32
         h = h.to(torch.promote_types(h.dtype, torch.float32))
         w, v = self._eig_spec.fn(h, **self._eig_kwargs)
@@ -452,8 +461,8 @@ class SvdPlan:
             return vh.mT, s, u.mT, info
         return u, s, vh, info
 
-    def _svd_impl(self, a):
-        u, s, vh, _ = self._svd_impl_info(a)
+    def _svd_impl(self, a, extra=None):
+        u, s, vh, _ = self._svd_impl_info(a, extra)
         return u, s, vh
 
     # --- entry points ---------------------------------------------------
@@ -545,3 +554,43 @@ def plan(config: SvdConfig, shape, dtype, device=None) -> SvdPlan:
     _PLANS.move_to_end(key)
     _evict()
     return built
+
+
+_CONFIG_CALL_FIELDS = (("r", int), ("l0", float), ("max_iters", int),
+                       ("qr_iters", int), ("qr_mode", str))
+
+
+def plan_for_call(shape, dtype, *, method: str, eig_method: str = "eigh",
+                  nb: int = 32, device=None, kw=None):
+    """The bridge for :func:`repro_torch.core.svd.polar_decompose` and
+    ``polar_svd``: a call's keyword arguments onto (cached plan, runtime
+    kwargs).
+
+    The schedule-shaping kwargs (r, l0, max_iters, qr_iters, qr_mode)
+    move into the config, so a wrapper call and a ``plan()`` call with
+    the same knobs share one cached plan; other hashable kwargs ride in
+    ``config.extra`` verbatim; unhashable (tensor-valued) kwargs and
+    ``want_h`` (per call, not configuration) come back for the caller to
+    pass at execution, outside the cache key.  ``scale="none"`` is
+    pinned: wrapper callers pre-scale a static backend's input, as with
+    the reference's wrappers."""
+    kw = dict(kw or {})
+    cfg_kw = {}
+    for name, cast in _CONFIG_CALL_FIELDS:
+        if kw.get(name) is not None:
+            cfg_kw[name] = cast(kw.pop(name))
+    runtime = {}
+    if "want_h" in kw:
+        runtime["want_h"] = kw.pop("want_h")
+    static = {}
+    for k, v in kw.items():
+        try:
+            hash(v)
+        except TypeError:
+            runtime[k] = v
+        else:
+            static[k] = v
+    cfg = SvdConfig(method=method, eig_method=eig_method, nb=nb,
+                    scale="none", extra=tuple(sorted(static.items())),
+                    **cfg_kw)
+    return plan(cfg, shape, dtype, device=device), runtime

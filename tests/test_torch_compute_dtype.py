@@ -13,6 +13,13 @@ reference's own bf16 criteria (top half of s within 5e-2 relative of the
 exact spectrum; orthogonality within ``default_orth_tol(bf16)`` =
 8 eps(bf16), and within 1e-2 as the reference's test also asks).
 
+The dynamic default (``qr_mode`` unset) takes the structured Householder
+first iteration on both sides: the f32-or-better run-time bound sits below
+10 sqrt(eps(bf16)).  The default method: ``auto`` picks ``qdwh_static``
+for a kappa hint, as the reference's pricing does; the reference's QDWH
+then raises on bf16 (``jnp.linalg.qr`` refuses it), the port's factorizes
+in f32 and is held to the same bf16 criteria against the exact spectrum.
+
 Then the plan gating, as the reference's tests hold it: the kernel
 backends are capped by the compute dtype's envelope entry, an f64
 computation is refused on them, and ``auto`` never picks them beyond it.
@@ -35,6 +42,7 @@ import repro_torch.solver as S  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import registry  # noqa: E402
 from repro_torch.core import svd as tsvd  # noqa: E402
+from repro_torch.core import zolo as tzolo  # noqa: E402
 from repro_torch.solver import planner  # noqa: E402
 
 N, KAPPA, SEED = 96, 1.0e3, 11
@@ -51,7 +59,25 @@ CONFIGS = {
     # "auto" asks for the Householder first iteration: cholqr2 in both
     "zolo": dict(method="zolo", mode="dynamic", l0_policy="runtime",
                  qr_mode="cholqr2"),
+    # the dynamic default: the Householder first iteration in both
+    "zolo_auto_first": dict(method="zolo", mode="dynamic",
+                            l0_policy="runtime"),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_reference_plans():
+    """Leave the reference's plan cache as this module found it.  Its
+    bf16-compute dynamic plans carry an f64 equation that its own plan
+    audit flags (ROADMAP Queue C), and
+    ``tests/test_analysis.py::test_audit_all_plans_green_after_suite``
+    audits every plan cached in its worker process."""
+    from repro.solver import planner as jplanner
+
+    before = dict(jplanner._PLANS)
+    yield
+    jplanner._PLANS.clear()
+    jplanner._PLANS.update(before)
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +101,28 @@ def _port_plan(jcfg, jplan, shape):
     return p
 
 
+def _count_householder_terms(monkeypatch):
+    calls = []
+    real = tzolo.term_sum_householder
+
+    def counted(*args, **kw):
+        calls.append(args[0].dtype)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tzolo, "term_sum_householder", counted)
+    return calls
+
+
+def _bf16_criteria(u, s, vh, s_exact):
+    top = slice(0, N // 2)
+    assert np.max(np.abs(s[top] - s_exact[top]) / s_exact[top]) <= S_RTOL
+    for q in (u, vh.T):
+        orth = float(tsvd.orthogonality(torch.from_numpy(q)))
+        assert orth <= ORTH_TOL and orth <= ORTH_EARLY
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_bf16_compute_plan_matches_reference(name, matrix):
+def test_bf16_compute_plan_matches_reference(name, matrix, monkeypatch):
     a, s_exact = matrix
     jcfg = JS.SvdConfig(compute_dtype="bfloat16", **CONFIGS[name])
     jp = JS.plan(jcfg, a.shape, jnp.float32)
@@ -84,7 +130,12 @@ def test_bf16_compute_plan_matches_reference(name, matrix):
     assert tp.compute_dtype == torch.bfloat16 and tp.dtype == torch.float32
     u_j, s_j, vh_j = (np.asarray(x, np.float64) for x in jp.svd(
         jnp.asarray(a)))
+    householder = _count_householder_terms(monkeypatch)
     u_t, s_t, vh_t = tp.svd(torch.from_numpy(a.copy()))
+    # only the dynamic default reaches the Householder first iteration; the
+    # term takes the bf16 iterate (and factorizes it in f32)
+    want = [torch.bfloat16] if name == "zolo_auto_first" else []
+    assert householder == want
     # results come back in the plan dtype
     assert u_t.dtype == s_t.dtype == vh_t.dtype == torch.float32
     assert u_t.shape == (2 * N, N) and vh_t.shape == (N, N)
@@ -94,12 +145,40 @@ def test_bf16_compute_plan_matches_reference(name, matrix):
     assert np.max(np.abs(s_t - s_j)) / smax <= PAIR_TOL
     assert np.max(np.abs((u_t * s_t) @ vh_t - (u_j * s_j) @ vh_j)) / smax \
         <= PAIR_TOL
-    top = slice(0, N // 2)
-    for s in (s_t, s_j):
-        assert np.max(np.abs(s[top] - s_exact[top]) / s_exact[top]) <= S_RTOL
-    for q in (u_t, vh_t.T, u_j, vh_j.T):
-        orth = float(tsvd.orthogonality(torch.from_numpy(q)))
-        assert orth <= ORTH_TOL and orth <= ORTH_EARLY
+    for u, s, vh in ((u_t, s_t, vh_t), (u_j, s_j, vh_j)):
+        _bf16_criteria(u, s, vh, s_exact)
+
+
+@pytest.mark.parametrize("policy,method", [
+    ("estimate_at_plan", "qdwh_static"),   # the kappa hint: auto
+    ("runtime", "zolo"),                   # the run-time bound: auto
+    ("runtime", "qdwh")])                  # asked for by name
+def test_bf16_compute_plan_default_and_qdwh_methods_run(policy, method,
+                                                         matrix):
+    """The bf16 compute plan with the default method, for a kappa hint
+    and for a run-time bound, resolves as the reference's ``auto`` does
+    and solves; so does dynamic ``qdwh``.  Each is held to the
+    reference's bf16 criteria against the exact spectrum (the reference's
+    QDWH raises on bf16, so there is no reference solve to pair with)."""
+    from repro.solver import planner as jplanner
+
+    a, s_exact = matrix
+    kw = dict(kappa=KAPPA) if policy == "estimate_at_plan" else \
+        dict(mode="dynamic")
+    jcfg = JS.SvdConfig(compute_dtype="bfloat16", l0_policy=policy, **kw)
+    if method != "qdwh":
+        assert jplanner._resolve(jcfg, a.shape, jnp.float32,
+                                 None)[0].name == method
+    else:
+        jcfg = dataclasses.replace(jcfg, method=method)
+    p = S.plan(interop.svd_config_from_dict(dataclasses.asdict(jcfg)),
+               a.shape, torch.float32, device="cpu")
+    assert p.method == method and p.compute_dtype == torch.bfloat16
+    u, s, vh = p.svd(torch.from_numpy(a.copy()))
+    assert u.dtype == s.dtype == vh.dtype == torch.float32
+    u, s, vh = (x.double().numpy() for x in (u, s, vh))
+    assert np.all(np.isfinite(u)) and np.all(np.isfinite(vh))
+    _bf16_criteria(u, s, vh, s_exact)
 
 
 def test_bf16_compute_plan_polar_returns_plan_dtype(matrix):
@@ -151,10 +230,11 @@ def test_f64_compute_refused_on_the_kernel_backends():
     assert p.compute_dtype == torch.float64
 
 
-def test_auto_never_selects_cuda_beyond_the_compute_dtype_cap():
+def test_auto_never_selects_cuda_beyond_the_compute_dtype_cap(monkeypatch):
     """Priced by the compute dtype: +inf beyond its envelope, so ``auto``
-    resolves to a plain backend there, and to ``zolo_cuda`` inside it, on
-    a CUDA device (resolution reads the device type only)."""
+    resolves to a plain backend there, and among the Zolo bindings to
+    ``zolo_cuda`` inside it, on a CUDA device (resolution reads the
+    device type only)."""
     inside = 0.9 * tsvd.CUDA_BF16_KAPPA_MAX
     between = 1.5e4
     cuda = torch.device("cuda", 0)
@@ -172,9 +252,14 @@ def test_auto_never_selects_cuda_beyond_the_compute_dtype_cap():
                           compute_dtype=compute)
         return planner._resolve(cfg, (256, 128), torch.float32, cuda)[0].name
 
-    assert resolved(inside, "bfloat16") == "zolo_cuda"
     assert "cuda" not in resolved(between, "bfloat16")
     assert resolved(between, None) == "zolo_cuda"
+    # inside the bf16 cap QDWH's flops are lower (4 iterations against
+    # Zolo's 3 at r = 2) and auto takes it, as the reference's CPU
+    # pricing does; among the Zolo bindings the kernel backend wins
+    assert resolved(inside, "bfloat16") == "qdwh_static"
+    monkeypatch.delitem(registry._POLAR, "qdwh_static")
+    assert resolved(inside, "bfloat16") == "zolo_cuda"
 
 
 def test_plan_flops_and_repr_use_the_compute_dtype():

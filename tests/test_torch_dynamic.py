@@ -243,12 +243,13 @@ def test_zolo_pd_given_l_and_max_iters_match_reference():
 
 
 def test_householder_regime_raises_and_allow_householder_false_runs():
-    # kappa 1e10: the runtime bound (~5e-11) is below 10 sqrt(eps)
+    # kappa 1e10: the runtime bound (~5e-11) is below 10 sqrt(eps); the
+    # structured Householder first iteration is ported, so "auto" and an
+    # explicit "householder" run it (test_auto_lands_on_householder_...)
     a = torch.from_numpy(np.array(make_matrix(40, 24, 1e10, seed=1)))
-    with pytest.raises(NotImplementedError, match="structured_qr"):
-        zolo.zolo_pd(a, r=3)
-    with pytest.raises(NotImplementedError, match="householder"):
-        zolo.zolo_pd(a, r=3, first_mode="householder")
+    for mode in ("auto", "householder"):
+        q, _, info = zolo.zolo_pd(a, r=3, first_mode=mode, want_h=False)
+        assert torch.isfinite(q).all() and bool(info.converged)
     with pytest.raises(ValueError, match="first_mode"):
         zolo.zolo_pd(a, r=3, first_mode="qr")
     # allow_householder=False is the reference's cholqr2 substitute
@@ -352,16 +353,50 @@ def test_svd_info_is_svd_with_its_polar_info():
 
 
 def test_auto_first_mode_in_the_householder_regime_raises_from_a_plan():
-    # f32 runtime bound of a kappa-1e4 matrix sits below 10 sqrt(eps(f32))
+    # f32 runtime bound of a kappa-1e4 matrix sits below 10 sqrt(eps(f32)):
+    # the default dynamic plan (no qr_mode) takes the Householder first
+    # iteration, and agrees with the cholqr2-first plan
     p = S.plan(S.SvdConfig(method="zolo_cuda_dynamic", l0_policy="runtime",
                            r=4), (64, 48), torch.float32, device="cpu")
     a = torch.from_numpy(np.asarray(make_matrix(64, 48, 1e4, seed=8),
                                     np.float32))
-    with pytest.raises(NotImplementedError, match="Householder"):
-        p.svd(a)
-    q, _, info = S.plan(S.SvdConfig(method="zolo_cuda_dynamic",
-                                    l0_policy="runtime", r=4,
-                                    qr_mode="cholqr2"),
-                        (64, 48), torch.float32, device="cpu").polar(a)
+    u, s, vh, info = p.svd_info(a)
     assert bool(info.converged)
     assert float(info.l_init) < 10.0 * float(np.finfo(np.float32).eps) ** 0.5
+    s_exact = np.linalg.svd(a.double().numpy(), compute_uv=False)
+    assert _max_err(s.numpy(), s_exact) <= 1e-5
+    _, s_qr2, _, info_qr2 = S.plan(
+        S.SvdConfig(method="zolo_cuda_dynamic", l0_policy="runtime", r=4,
+                    qr_mode="cholqr2"),
+        (64, 48), torch.float32, device="cpu").svd_info(a)
+    assert bool(info_qr2.converged)
+    assert _max_err(s.numpy(), s_qr2.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n", [(64, 40), (48, 48)])
+def test_auto_lands_on_householder_below_ten_sqrt_eps(m, n, monkeypatch):
+    # f64, kappa 1e10: l0 ~ 5e-11 < 10 sqrt(eps) = 1.5e-7.  The "auto"
+    # first iteration is the structured Householder one (counted), and
+    # iterations, converged and Q match the reference's
+    a = np.asarray(make_matrix(m, n, 1e10))
+    calls = []
+    real = zolo.term_sum_householder
+    monkeypatch.setattr(zolo, "term_sum_householder",
+                        lambda *a_, **k: calls.append(1) or real(*a_, **k))
+    q_t, _, info_t = zolo.zolo_pd(torch.from_numpy(a.copy()), r=3,
+                                  want_h=False)
+    assert len(calls) == 1
+    assert float(info_t.l_init) < 10.0 * np.finfo(np.float64).eps ** 0.5
+    q_j, _, info_j = _jit_zolo_pd("auto")(jnp.asarray(a))
+    assert int(info_t.iterations) == int(info_j.iterations)
+    assert bool(info_t.converged) == bool(info_j.converged) is True
+    ref_err = _max_err(q_j, _exact_polar(a))
+    assert _max_err(q_t.numpy(), q_j) <= max(1e-12, 2.0 * ref_err)
+    # allow_householder=False keeps its meaning: the cholqr2 substitute
+    calls.clear()
+    x0 = torch.from_numpy(a.copy()) / norms.sigma_max_upper(
+        torch.from_numpy(a.copy()))
+    zolo.run_dynamic(x0, info_t.l_init.double(), 3,
+                     eps=float(np.finfo(np.float64).eps),
+                     allow_householder=False)
+    assert not calls

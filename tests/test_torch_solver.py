@@ -137,14 +137,20 @@ def test_plan_defaults_to_the_card():
 def test_auto_and_cuda_pricing_on_cpu():
     cfg = S.SvdConfig(kappa=1e3, l0_policy="estimate_at_plan")
     p = S.plan(cfg, (32, 16), torch.float32, device="cpu")
-    assert p.method == "zolo_static"  # zolo_cuda is priced +inf on CPU
+    # the reference's pick (test_auto_picks_the_reference_method): QDWH's
+    # 4 iterations cost fewer flops than Zolo's 3 at r = 2; zolo_cuda is
+    # priced +inf on CPU
+    assert p.method == "qdwh_static"
     cuda_cfg = cfg.replace(method="zolo_cuda")
     price = {name: registry.get_polar(name).flops_fn(
         32, 16, r=2, kappa=1e3, dtype=torch.float32, device=dev)
-        for name in ("zolo_cuda", "zolo_static")
+        for name in ("zolo_cuda", "zolo_static", "qdwh_static", "newton")
         for dev in (torch.device("cpu"),)}
     assert price["zolo_cuda"] == float("inf")
     assert np.isfinite(price["zolo_static"])
+    assert price["qdwh_static"] < price["zolo_static"]
+    assert price["newton"] == float("inf")  # not square
+    assert p.flops_estimate() == price["qdwh_static"]
     assert np.isfinite(registry.get_polar("zolo_cuda").flops_fn(
         32, 16, r=2, kappa=1e3, dtype=torch.float32,
         device=torch.device("cuda", 0)))
@@ -193,3 +199,143 @@ def test_batched_matches_one_at_a_time():
         torch.testing.assert_close(s[0, i], s1, rtol=0, atol=1e-14)
         torch.testing.assert_close(u[0, i] * s[0, i] @ vh[0, i],
                                    u1 * s1 @ vh1, rtol=0, atol=1e-13)
+
+
+# --- registrations, auto, and the one-call wrappers ---------------------------
+
+
+def _reference_single_device(names, get):
+    """The reference's registered names that run without a mesh, under
+    the port's names."""
+    return sorted(interop.METHOD_NAMES.get(n, n) for n in names
+                  if not getattr(get(n), "requires_mesh", False))
+
+
+def test_registered_names_equal_the_reference_single_device_ones():
+    from repro.core import registry as jregistry
+
+    assert registry.list_polar() == _reference_single_device(
+        jregistry.list_polar(), jregistry.get_polar)
+    assert registry.list_eig() == jregistry.list_eig() == ["eigh",
+                                                           "jacobi"]
+    for name in ("qdwh", "qdwh_static", "newton"):
+        spec, jspec = registry.get_polar(name), jregistry.get_polar(name)
+        assert (spec.dynamic, spec.baseline, spec.is_oracle) == \
+            (jspec.dynamic, jspec.baseline, jspec.is_oracle)
+
+
+@pytest.mark.parametrize("policy", ["estimate_at_plan", "runtime"])
+@pytest.mark.parametrize("shape", [(64, 48), (96, 96), (200, 40)])
+def test_auto_picks_the_reference_method(shape, policy):
+    # the reference's auto on the CPU (zolo_pallas priced x1e3 off-TPU,
+    # zolo_cuda +inf on a CPU device) over a kappa grid: every pick equal.
+    # The reference's choice comes from its resolution step, which builds
+    # no plan: its plan cache (walked by its own audit) stays as it was.
+    from repro.solver import planner as jplanner
+
+    for kappa in (1.5, 10.0, 1e2, 1e4, 1e6, 1e8, 1e10, 1e14):
+        for tdt, jdt in ((torch.float64, jnp.float64),
+                         (torch.float32, jnp.float32)):
+            jcfg = JS.SvdConfig(kappa=kappa, l0_policy=policy)
+            want = jplanner._resolve(jcfg, shape, jdt, None)[0].name
+            got = S.plan(interop.svd_config_from_dict(
+                dataclasses.asdict(jcfg)), shape, tdt, device="cpu").method
+            assert got == interop.METHOD_NAMES.get(want, want), \
+                (kappa, tdt, want, got)
+
+
+def _invariants(a, q, h, tol):
+    m, n = a.shape
+    assert q.shape == (m, n) and h.shape == (n, n)
+    torch.testing.assert_close(q @ h, a, rtol=0, atol=tol)
+    torch.testing.assert_close(h, h.mT, rtol=0, atol=tol)
+    k = min(m, n)
+    g = q @ q.mT if m < n else q.mT @ q
+    assert float((g - torch.eye(k, dtype=a.dtype)).abs().max()) < tol
+
+
+@pytest.mark.parametrize("method", ["zolo", "qdwh", "zolo_static",
+                                    "qdwh_static", "zolo_cuda_dynamic"])
+@pytest.mark.parametrize("shape", [(56, 40), (40, 40), (40, 56)])
+def test_polar_decompose_matches_reference(shape, method):
+    from repro.core import svd as jsvd
+
+    a = np.asarray(make_matrix(*shape, 1e3, seed=12))
+    kw = {"l0": 0.9e-3} if method.endswith("static") else {}
+    dt = torch.float32 if "cuda" in method else torch.float64
+    a_t = torch.from_numpy(a.astype(np.float32) if "cuda" in method
+                           else a.copy())
+    q, h, info = tsvd.polar_decompose(a_t, method=method, want_h=True,
+                                      **kw)
+    if "cuda" in method:
+        # the reference's counterpart backend itself, in the canonical
+        # orientation the wrapper hands it (an f32 plan in the
+        # reference's cache would carry an f64 equation its own audit
+        # flags: ROADMAP Queue C)
+        from repro.core import zolo as jzolo
+        from repro.core import zolo_pallas as jzolo_pallas
+
+        jw, transposed = jzolo.polar_canonical(jnp.asarray(a_t.numpy()))
+        q_j, h_j, info_j = jzolo_pallas.zolo_pd_pallas_dynamic(
+            jw, want_h=True)
+        if transposed:
+            h_j = q_j @ h_j @ q_j.T
+            q_j = q_j.T
+    else:
+        q_j, h_j, info_j = jsvd.polar_decompose(
+            jnp.asarray(a_t.numpy()), method=method, want_h=True, **kw)
+    tol = 1e-12 if dt == torch.float64 else 5e-5
+    assert q.dtype == dt
+    _invariants(a_t, q, h, tol if dt == torch.float64 else 1e-4)
+    assert _rel(q.numpy(), q_j, 1.0) <= tol
+    assert _rel(h.numpy(), h_j, 1.0) <= (tol if dt == torch.float64
+                                         else 1e-4)
+    assert int(info.iterations) == int(info_j.iterations)
+    # the wrapper's plan is the one plan() builds for the same knobs
+    p, runtime = S.plan_for_call(shape, a_t.dtype, method=method,
+                                 device="cpu", kw=dict(kw, want_h=False))
+    assert runtime == {"want_h": False} and p.config.scale == "none"
+    assert S.plan(p.config, shape, a_t.dtype, device="cpu") is p
+
+
+@pytest.mark.parametrize("shape,method,eig_method", [
+    (shape, method, eig) for shape in ((56, 40), (48, 48), (40, 56))
+    for method, eig in (("zolo", "eigh"), ("qdwh", "jacobi"),
+                        ("zolo_static", "jacobi"))] + [
+    ((48, 48), "newton", "eigh"), ((48, 48), "newton", "jacobi")])
+def test_polar_svd_matches_reference(shape, method, eig_method):
+    from repro.core import svd as jsvd
+
+    a = np.asarray(make_matrix(*shape, 1e4, seed=13))
+    kw = {"l0": 0.9e-4} if method.endswith("static") else {}
+    u, s, vh = tsvd.polar_svd(torch.from_numpy(a.copy()), method=method,
+                              eig_method=eig_method, nb=8, **kw)
+    _, s_j, _ = jsvd.polar_svd(jnp.asarray(a), method=method,
+                               eig_method=eig_method, nb=8, **kw)
+    k = min(shape)
+    assert u.shape == (shape[0], k) and vh.shape == (k, shape[1])
+    assert float(np.abs(s.numpy() - np.asarray(s_j)).max()) <= F64_TOL
+    np.testing.assert_allclose(s.numpy(), np.linalg.svd(
+        a, compute_uv=False), rtol=0, atol=F64_TOL)
+    assert float(tsvd.orthogonality(u)) < F64_TOL
+    assert float(tsvd.orthogonality(vh.mT)) < F64_TOL
+    torch.testing.assert_close((u * s) @ vh, torch.from_numpy(a), rtol=0,
+                               atol=1e-11)
+
+
+def test_wrapper_misuse_names_the_value():
+    a = torch.from_numpy(np.asarray(make_matrix(24, 16, 10.0, seed=1)))
+    with pytest.raises(ValueError, match="'bogus'"):
+        tsvd.polar_decompose(a, method="bogus")
+    with pytest.raises(ValueError, match="'bogus_eig'"):
+        tsvd.polar_svd(a, eig_method="bogus_eig")
+    with pytest.raises(ValueError, match=r"\(24, 16\)"):
+        tsvd.polar_decompose(a, method="newton")
+    with pytest.raises(ValueError, match=r"\(24, 16\)"):
+        tsvd.polar_svd(a.mT, method="newton")  # canonical: tall again
+    with pytest.raises(ValueError, match="l0"):
+        tsvd.polar_decompose(a, method="qdwh_static")
+    import repro_torch
+
+    assert repro_torch.polar_svd is tsvd.polar_svd
+    assert repro_torch.polar_decompose is tsvd.polar_decompose

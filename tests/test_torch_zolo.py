@@ -15,7 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from conftest import make_matrix  # noqa: E402
 from repro.core import norms as jnorms  # noqa: E402
 from repro.core import zolo as jzolo  # noqa: E402
-from repro_torch.core import norms, zolo, zolo_cuda  # noqa: E402
+from repro_torch.core import coeffs, norms, zolo, zolo_cuda  # noqa: E402
 
 TOL = 1e-12
 
@@ -142,13 +142,93 @@ def test_ridged_first_pass_keeps_the_cholqr2_term(kappa, monkeypatch):
 
 
 def test_iteration_modes_validate():
-    a_t, _ = _both(16, 8, 10.0)
+    a_t, a_j = _both(16, 8, 10.0)
     with pytest.raises(ValueError, match="qr_mode"):
         zolo.zolo_pd_static(a_t, l0=0.09, qr_mode="qr")
-    with pytest.raises(NotImplementedError, match="householder"):
-        zolo.zolo_pd_static(a_t, l0=0.09, qr_mode="householder")
+    # every mode of the reference runs, householder included
+    for mode in zolo.ITER_MODES:
+        q_t, _, _ = zolo.zolo_pd_static(a_t, l0=0.09, qr_mode=mode)
+        q_j, _, _ = jzolo.zolo_pd_static(a_j, l0=0.09, qr_mode=mode)
+        assert _max_err(q_t.numpy(), q_j) <= TOL
     with pytest.raises(ValueError, match="schedule"):
         zolo.zolo_pd_static(a_t)
+
+
+# --- the structured Householder term ----------------------------------------
+
+
+def _exact_iteration(a, c, w, mhat):
+    """X -> mhat (X + sum_j w_j X (X^T X + c_j I)^{-1}) through the SVD of
+    X, in f64: mhat s (1 + sum_j w_j / (s^2 + c_j)) on each singular
+    value."""
+    u, s, vt = np.linalg.svd(a, full_matrices=False)
+    f = mhat * s * (1.0 + sum(wj / (s * s + cj) for cj, wj in zip(c, w)))
+    return (u * f) @ vt
+
+
+@pytest.mark.parametrize("hh_block", [8, 32])
+@pytest.mark.parametrize("kappa", [1e2, 1e4, 1e6])
+@pytest.mark.parametrize("m,n", [(64, 40), (48, 48)])
+def test_householder_iteration_matches_reference(m, n, kappa, hh_block):
+    a_t, a_j = _both(m, n, kappa, seed=3)
+    it = coeffs.zolo_schedule_np(0.9 / kappa, 3)[0]
+    c, w = np.array(it.c[0::2]), np.array(it.a)
+    got = zolo.zolo_iteration(a_t, torch.from_numpy(c), torch.from_numpy(w),
+                              torch.tensor(it.mhat, dtype=torch.float64),
+                              mode="householder", hh_block=hh_block)
+    want = jzolo.zolo_iteration(a_j, jnp.asarray(c), jnp.asarray(w),
+                                jnp.float64(it.mhat), mode="householder",
+                                hh_block=hh_block)
+    assert got.dtype == torch.float64
+    # 1e-12 while the reference's own error against the exact iteration
+    # is below it (kappa <= 1e4), twice that error beyond, as for Q above
+    ref_err = _max_err(want, _exact_iteration(a_t.numpy(), c, w, it.mhat))
+    if kappa <= 1e4:
+        assert ref_err <= TOL
+    assert _max_err(got.numpy(), want) <= max(TOL, 2.0 * ref_err)
+    if kappa > 1e2:
+        return
+    t = zolo.term_sum_householder(a_t, torch.from_numpy(c),
+                                  torch.from_numpy(w), block=hh_block)
+    t_j = jzolo.term_sum_householder(a_j, jnp.asarray(c), jnp.asarray(w),
+                                     block=hh_block)
+    assert _max_err(t.numpy(), t_j) <= TOL
+
+
+@pytest.mark.parametrize("m,n", [(64, 40), (48, 48)])
+def test_householder_static_is_finite_where_cholqr2_is_nan(m, n):
+    # kappa 1e10 in f64: the reference's route (the cholqr2 first
+    # iteration is all NaN there, test_indefinite_shift_gives_nan_...)
+    a_t, a_j = _both(m, n, 1e10)
+    q_j, _, info_j = jzolo.zolo_pd_static(a_j, l0=0.9e-10,
+                                          qr_mode="householder")
+    q_t, h_t, info_t = zolo.zolo_pd_static(a_t, l0=0.9e-10,
+                                           qr_mode="householder",
+                                           want_h=True)
+    assert torch.isfinite(q_t).all()
+    assert int(info_t.iterations) == int(info_j.iterations)
+    # two f64 solves at kappa 1e10 agree within the reference's own
+    # error against the exact polar factor (doubled), as at 1e6 above
+    ref_err = _max_err(q_j, _exact_polar(a_t.numpy()))
+    assert _max_err(q_t.numpy(), q_j) <= max(TOL, 2.0 * ref_err)
+    assert ref_err < 1e-5
+    np.testing.assert_allclose((q_t @ h_t).numpy(), a_t.numpy(),
+                               atol=1e-12)
+
+
+def test_cuda_ops_bundle_on_cpu_runs_the_householder_path():
+    # the kernel bundle's plain versions on CPU tensors: the Householder
+    # iteration's combine goes through ops.polar_update (K2's entry)
+    # (kappa 1e4 in f32: l0 below 10 sqrt(eps(f32)), the Householder regime)
+    a = torch.from_numpy(np.asarray(make_matrix(130, 70, 1e4, seed=6),
+                                    np.float32))
+    q_d, _, _ = zolo.zolo_pd_static(a, l0=0.9e-4, r=2,
+                                    qr_mode="householder", hh_block=16)
+    q_k, _, _ = zolo_cuda.zolo_pd_cuda(a, l0=0.9e-4, r=2,
+                                       qr_mode="householder", hh_block=16)
+    assert q_k.dtype == torch.float32 and torch.isfinite(q_k).all()
+    assert _max_err(q_k.numpy(), q_d.numpy()) <= 5e-6
+    assert _max_err(q_k.numpy(), _exact_polar(a.double().numpy())) <= 1e-4
 
 
 def test_cuda_ops_bundle_on_cpu_matches_default_ops():
