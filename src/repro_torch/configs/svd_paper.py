@@ -58,13 +58,15 @@ def matrix_seed(name: str, seed: int = 0) -> int:
 
 def synthesize(name: str, *, cpu_size: bool = True, n=None,
                dtype: torch.dtype = torch.float64, seed: int = 0,
-               device=None):
+               device=None, cond=None):
     """Dense synthetic stand-in with matched n (or cpu_n) and kappa_2.
 
     Returns ``(a, s)``: ``a`` (n, n) in ``dtype`` on ``device`` (the CUDA
     card when None) and its exact singular values ``s`` (float64,
     descending).  The matrix is formed in float64 and then cast.  ``n``
-    overrides the size (the condition number stays the paper's)."""
+    overrides the size (the condition number stays the paper's);
+    ``cond`` overrides the condition number (the same singular vectors,
+    a geometric spectrum from 1 down to 1/cond)."""
     if name not in MATRICES:
         raise ValueError(f"unknown paper matrix {name!r}; known: "
                          f"{sorted(MATRICES)}")
@@ -74,7 +76,8 @@ def synthesize(name: str, *, cpu_size: bool = True, n=None,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(matrix_seed(name, seed))
     f64 = torch.float64
-    s = torch.logspace(0.0, -math.log10(cfg.cond), n, dtype=f64,
+    cond = cfg.cond if cond is None else float(cond)
+    s = torch.logspace(0.0, -math.log10(cond), n, dtype=f64,
                        device=dev)
     u, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=f64,
                                        device=dev))

@@ -25,9 +25,12 @@ from repro_torch.core.eig import (
 )
 from repro_torch.core.newton import scaled_newton_pd
 from repro_torch.core.norms import (
+    condition_estimate,
     sigma_max_power,
     sigma_max_upper,
+    sigma_min_lower,
     sigma_min_lower_qr,
+    singular_interval,
 )
 from repro_torch.core.qdwh import PolarInfo, form_h, qdwh_pd, qdwh_pd_static
 from repro_torch.core.registry import (

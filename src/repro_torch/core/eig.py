@@ -3,7 +3,8 @@
 Port of ``repro/core/eig.py``.  The paper uses ELPA; the role is filled
 by:
 
-* :func:`eigh`              — ``torch.linalg.eigh`` (LAPACK / cuSOLVER).
+* :func:`eigh`              — ``torch.linalg.eigh`` (LAPACK / cuSOLVER),
+                              NaN out for a non-finite input.
 * :func:`block_jacobi_eigh` — two-sided block-Jacobi with a round-robin
                               (tournament) ordering: every round applies
                               b/2 *disjoint* block rotations, the
@@ -43,8 +44,16 @@ MAX_SWEEPS = 40
 
 
 def eigh(h: torch.Tensor):
-    """(w ascending, v) with h v = v diag(w), like ``jnp.linalg.eigh``."""
-    return torch.linalg.eigh(h)
+    """(w ascending, v) with h v = v diag(w), like ``jnp.linalg.eigh``,
+    and with its failure mode: a batch entry holding a non-finite value
+    comes out all-NaN (``torch.linalg.eigh`` raises on it), so a broken
+    solve returns NaN factors for its health check to catch.  No host
+    sync: the entry is swapped for I before the solve and masked after."""
+    bad = ~torch.isfinite(h).all(dim=-1).all(dim=-1)
+    eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
+    w, v = torch.linalg.eigh(torch.where(bad[..., None, None], eye, h))
+    return (w.masked_fill(bad[..., None], float("nan")),
+            v.masked_fill(bad[..., None, None], float("nan")))
 
 
 def round_robin_schedule(b: int) -> np.ndarray:

@@ -7,6 +7,10 @@ Port of the main-path part of ``repro/core/norms.py``:
 * ``sigma_max_power`` — power iteration (sharp, lower-biased).
 * ``sigma_min_lower_qr`` — sigma_min lower estimate from one QR and
   inverse iteration on R (the dynamic engine's run-time bound).
+* ``sigma_min_lower`` — the Gram route (one Cholesky, inverse
+  iteration; its ``gram=`` hook takes a kernel's Gram).
+* ``singular_interval`` / ``condition_estimate`` — the spectrum bracket
+  the d&c top-k frontend bisects in, and a kappa over-estimate.
 
 The reference draws the power iteration's start vector from
 ``jax.random.normal(PRNGKey(0))``, which torch cannot reproduce.  Here
@@ -21,6 +25,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.core import linalg as _linalg
 
 
 def frobenius(a: torch.Tensor) -> torch.Tensor:
@@ -71,6 +77,50 @@ def sigma_max_power(a: torch.Tensor, iters: int = 10, *,
                                     dim=-1)
 
 
+def sigma_min_lower(x: torch.Tensor, iters: int = 8, safety: float = 0.5,
+                    *, gram=None) -> torch.Tensor:
+    """Deflated estimate of sigma_min(X) for X with sigma_max <= ~1.
+
+    Inverse power iteration on G = X^T X + delta I via one Cholesky,
+    delta = n * eps keeps the factorization well-posed even for singular
+    X.  Never returns below sqrt(delta) * safety (the resolution floor).
+    The Gram accumulates in f32-or-better and the iteration runs in that
+    dtype (a bf16 input would otherwise push the floor to ~0.5); the
+    result is in the promoted dtype.
+
+    ``gram`` swaps the Gram product for an implementation with the
+    :class:`repro_torch.core.zolo.ZoloOps` ``gram(x)`` contract
+    (f32-or-better accumulation), e.g. a kernel's or a distributed one."""
+    n = x.shape[-1]
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    eps = torch.finfo(dtype).eps
+    delta = n * eps
+    if gram is None:
+        xa = x.to(dtype)
+        g = xa.mT @ xa
+    else:
+        g = gram(x).to(dtype)
+    g = g + delta * torch.eye(n, dtype=dtype, device=x.device)
+    l = _linalg.cholesky(g)
+
+    def solve(v):
+        y = torch.linalg.solve_triangular(l, v[..., None], upper=False)
+        z = torch.linalg.solve_triangular(l.mT, y, upper=True)
+        return z[..., 0]
+
+    tiny = torch.finfo(dtype).tiny
+    v = torch.ones(x.shape[:-2] + (n,), dtype=dtype,
+                   device=x.device) / math.sqrt(n)
+    for _ in range(iters):
+        w = solve(v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1,
+                                                     keepdim=True), min=tiny)
+    lam = torch.einsum("...n,...n->...", v,
+                       torch.einsum("...kn,...n->...k", g, v))
+    sig2 = torch.clamp(lam - delta, min=delta)
+    return safety * torch.sqrt(sig2)
+
+
 def sigma_min_lower_qr(x: torch.Tensor, iters: int = 12,
                        safety: float = 0.5) -> torch.Tensor:
     """sigma_min lower estimate via one QR + inverse iteration on R.
@@ -104,3 +154,31 @@ def sigma_min_lower_qr(x: torch.Tensor, iters: int = 12,
     eps = torch.finfo(dtype).eps
     sig = torch.where(torch.isfinite(sig), sig, torch.zeros_like(sig))
     return torch.clamp(safety * sig, min=4 * eps)
+
+
+def singular_interval(a: torch.Tensor, iters: int = 8):
+    """(lower, upper) bracket of the singular spectrum of ``a``.
+
+    ``upper`` is the guaranteed :func:`sigma_max_upper` bound; ``lower``
+    the deflated :func:`sigma_min_lower` estimate of the pre-scaled
+    matrix, mapped back to the original scale.  The spectral
+    divide-and-conquer frontend (:mod:`repro_torch.spectral.dnc`) seeds
+    its shift bisection with it: every spectrum-splitting shift lives in
+    [lower**2, upper**2] on the Gram's eigenvalue axis.  Both ends are
+    0-d tensors on ``a``'s device (``lower`` in f32-or-better)."""
+    upper = sigma_max_upper(a)
+    safe = torch.clamp(upper, min=torch.finfo(a.dtype).tiny)
+    x0 = a / safe.to(a.dtype)
+    lower = sigma_min_lower(x0, iters=iters) * safe
+    return lower, upper
+
+
+def condition_estimate(a: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """kappa_2 estimate: (upper bound on sigma_max) / (lower bound on
+    sigma_min), an over-estimate — safe to feed the Zolotarev interval
+    [1/kappa, 1].  sigma_min goes through the QR estimator: the Gram
+    route squares the condition number and floors near sqrt(n * eps)."""
+    amax = sigma_max_upper(a)
+    x0 = a / amax.to(a.dtype)
+    smin = sigma_min_lower_qr(x0, iters=iters)
+    return 1.0 / smin

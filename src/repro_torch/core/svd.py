@@ -56,13 +56,18 @@ def _zolo_flops(m, n, *, r, kappa, grouped=False, dtype=None, sep=1,
 
 
 # The conditioning envelope of the f32-accumulating kernels, keyed by
-# (input dtype, accumulator dtype).  An ACCURACY CONTRACT COPIED FROM THE
-# PALLAS KERNELS (repro/core/svd.py::PALLAS_KAPPA_ENVELOPE, measured there
-# at n = 256) and not measured on Hopper: the Hopper kernels share the
-# precision contract (f32 products and sums, global shift clamp), so the
-# caps are carried unchanged until a sweep on the card replaces them.
-CUDA_F32_KAPPA_MAX = 2.0e4
-CUDA_BF16_KAPPA_MAX = 1.0e4
+# (input dtype, accumulator dtype): the largest kappa at which zolo_cuda's
+# polar factor met the port's limits, measured by chip_smoke.py phase 15
+# on an NVIDIA H100 80GB HBM3 (power limit 700.00 W) at n = 11,999 (the
+# linverse singular vectors, geometric spectrum 1..1/kappa, l0 = 1/kappa,
+# r = choose_r(kappa) = 2, 3 iterations).  f32: finite, orthogonality and
+# ||A - QH||_F/||A||_F <= 1e-4 at every kappa swept, 1e4..1e6 (at 1e6:
+# 1.8e-8 and 5.6e-5).  bf16 iterates: finite, orthogonality <= 8 eps(bf16)
+# = 0.0625 at every kappa swept, 3e3..1e5 (at 1e5: 1.9e-4).  Each cap is
+# the sweep's largest point, not a measured breaking point.  (The copied
+# Pallas caps, 2e4 and 1e4 from an n = 256 sweep, were below both.)
+CUDA_F32_KAPPA_MAX = 1.0e6
+CUDA_BF16_KAPPA_MAX = 1.0e5
 CUDA_KAPPA_ENVELOPE = {
     ("float32", "float32"): CUDA_F32_KAPPA_MAX,
     ("bfloat16", "float32"): CUDA_BF16_KAPPA_MAX,

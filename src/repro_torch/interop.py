@@ -2,11 +2,12 @@
 
 An SVD solver has no weights: its state is the plan — the configuration,
 the coefficient schedule and the power-iteration start vector of the
-prescale.  These helpers take that state as plain Python values and
-numpy arrays (what ``dataclasses.asdict`` of a reference ``SvdConfig`` and
-``numpy.asarray`` of its arrays give), so the port and the JAX reference
-compute the same thing on the same input.  Nothing of ``repro`` is
-imported here.
+prescale, and for a top-k plan its random draws (the sketch's test
+matrix, the SRHT's signs and columns, the d&c extraction probe).  These
+helpers take that state as plain Python values and numpy arrays (what
+``dataclasses.asdict`` of a reference ``SvdConfig`` and ``numpy.asarray``
+of its arrays give), so the port and the JAX reference compute the same
+thing on the same input.  Nothing of ``repro`` is imported here.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from repro_torch.core.coeffs import ZoloIteration
 from repro_torch.solver.config import SvdConfig
 from repro_torch.solver.planner import SvdPlan
+from repro_torch.spectral.topk import TopKPlan
 
 # reference backend name -> its counterpart in the port
 METHOD_NAMES = {"zolo_pallas": "zolo_cuda",
@@ -86,3 +88,28 @@ def with_state(p: SvdPlan, *, schedule=None, start_vector=None) -> SvdPlan:
             raise ValueError(f"start vector of shape {tuple(v0.shape)}; "
                              f"the plan needs ({min(p.shape)},)")
     return dataclasses.replace(p, _backend_kwargs=kwargs, start_vector=v0)
+
+
+def with_draws(p: TopKPlan, **arrays) -> TopKPlan:
+    """An uncached copy of top-k plan ``p`` bound to the given random
+    draws (numpy arrays or tensors), in place of the ones it would draw
+    from ``config.seed``.
+
+    The names and shapes are those of ``p.draw()``: ``omega`` (n, l) for
+    a Gaussian sketch, ``signs`` (n,) and ``cols`` (l,) for an SRHT one,
+    ``probe`` (n, l) for d&c, with n = min(shape) — each in the
+    canonical orientation, as the reference draws them.  ``cols`` are
+    integer column indices; the rest take the plan dtype."""
+    want = {name: tuple(t.shape) for name, t in p.draw().items()}
+    if set(arrays) != set(want):
+        raise ValueError(f"{p.strategy!r} plan draws {sorted(want)}; got "
+                         f"{sorted(arrays)}")
+    draws = {}
+    for name, value in arrays.items():
+        t = torch.as_tensor(np.array(value), device=p.device)
+        t = t.long() if name == "cols" else t.to(p.dtype)
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"draw {name!r} of shape {tuple(t.shape)}; "
+                             f"the plan needs {want[name]}")
+        draws[name] = t
+    return dataclasses.replace(p, draws=draws)

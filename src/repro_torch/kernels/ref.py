@@ -104,9 +104,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q is (b, sq, h, d); k and v are (b, skv, h, d).  Query position i sees
     key j iff j <= i + (skv - sq) (when ``causal``) and, with a window w,
-    j > i + (skv - sq) - w.  The scale defaults to 1/sqrt(d).  Scores,
-    softmax and the PV product are f32, with bf16 inputs widened before
-    the products; a fully masked row gives NaN, as the reference's does."""
+    j > i + (skv - sq) - w.  The scale defaults to 1/sqrt(d).  Scores and
+    the PV product are f32, with bf16 inputs widened before the products;
+    the softmax is computed in f64 and rounded to f32 (see below); a fully
+    masked row gives NaN, as the reference's does."""
     f32 = torch.float32
     sq, d = q.shape[1], q.shape[3]
     skv = k.shape[1]
@@ -120,6 +121,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (kpos > qpos - window)
     logits = logits.masked_fill(~mask, float("-inf"))
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    # the softmax is exponentiated and normalized in f64 and rounded to
+    # f32 once: torch's vectorized f32 exp on the CPU does not give the
+    # same bits in every process, and f64 rounds those differences away
+    z = (logits - logits.amax(dim=-1, keepdim=True)).double()
+    p = torch.exp(z)
+    p = (p / p.sum(dim=-1, keepdim=True)).to(f32)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))

@@ -14,6 +14,7 @@ from repro_torch.solver.planner import (
     PlanResolution,
     SvdPlan,
     cache_stats,
+    flops_estimate,
     pin,
     plan,
     plan_for_call,
@@ -26,6 +27,7 @@ __all__ = [
     "SvdConfig",
     "SvdPlan",
     "cache_stats",
+    "flops_estimate",
     "pin",
     "plan",
     "plan_for_call",

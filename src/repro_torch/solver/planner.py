@@ -22,8 +22,9 @@ prescale, the results come back in the plan dtype, and the method is
 priced and envelope-capped in the compute dtype.  Plans run on the CUDA
 card unless ``device="cpu"`` is passed; the one-call wrappers
 (``polar_decompose``/``polar_svd``) plan on their input's device through
-:func:`plan_for_call`.  Not yet ported: ``audit()``,
-``svd_verified()`` and the grouped mode (each raises
+:func:`plan_for_call`.  ``svd_verified``/``svd_batched_verified``
+append the solve's health (:mod:`repro_torch.resilience.health`).  Not
+yet ported: ``audit()`` and the grouped mode (each raises
 ``NotImplementedError``).
 """
 
@@ -362,10 +363,6 @@ class SvdPlan:
         raise NotImplementedError("SvdPlan.audit() is not yet ported to "
                                   "repro_torch")
 
-    def svd_verified(self, a):
-        raise NotImplementedError("SvdPlan.svd_verified() is not yet "
-                                  "ported to repro_torch")
-
     def __repr__(self):
         compute = "" if self.resolution.compute_dtype is None else \
             f"compute_dtype={_registry.dtype_name(self.compute_dtype)}, "
@@ -465,6 +462,14 @@ class SvdPlan:
         u, s, vh, _ = self._svd_impl_info(a, extra)
         return u, s, vh
 
+    def _svd_verified_impl(self, a, extra=None):
+        # lazy: repro_torch.resilience layers on repro_torch.solver, not
+        # the reverse
+        from repro_torch.resilience import health as _rhealth
+
+        u, s, vh, info = self._svd_impl_info(a, extra)
+        return u, s, vh, _rhealth.solve_health(u, s, vh, info)
+
     # --- entry points ---------------------------------------------------
 
     def _check(self, a, batched=False):
@@ -503,6 +508,19 @@ class SvdPlan:
         self._check(a)
         return self._svd_impl_info(a)
 
+    def svd_verified(self, a):
+        """``svd`` plus its health: ``(u, s, vh, health)``.
+
+        ``health`` is a :class:`repro_torch.resilience.health.SolveHealth`
+        of device scalars (all-finite flag, ``||UᵀU - I||_F / n`` over the
+        rank-revealing columns, the driver's converged flag and the
+        run-time conditioning estimate), queued behind the solve with no
+        read back to the host — one extra Gram product.  Judge it with
+        :func:`repro_torch.resilience.health.judge_plan`.
+        """
+        self._check(a)
+        return self._svd_verified_impl(a)
+
     def polar(self, a, want_h: bool = True):
         """(q, h, info) with A ~= Q H."""
         self._check(a)
@@ -513,6 +531,16 @@ class SvdPlan:
         time."""
         self._check(a, batched=True)
         return self._batched(self._svd_impl, a)
+
+    def svd_batched_verified(self, a):
+        """``svd_verified`` over the leading axes of (..., m, n).
+
+        Health leaves carry the leading batch axes, so a caller triages
+        entries individually (``SolveHealth(*(t[i] for t in health))``)
+        instead of failing a whole batch for one bad entry.
+        """
+        self._check(a, batched=True)
+        return self._batched(self._svd_verified_impl, a)
 
     def polar_batched(self, a, want_h: bool = True):
         """``polar`` over the leading axes of (..., m, n)."""
@@ -554,6 +582,21 @@ def plan(config: SvdConfig, shape, dtype, device=None) -> SvdPlan:
     _PLANS.move_to_end(key)
     _evict()
     return built
+
+
+def flops_estimate(config: SvdConfig, shape, dtype,
+                   device=None) -> Optional[float]:
+    """Cost-model score of ``config`` at (shape, dtype, device) without
+    executing.
+
+    Resolves (and caches) the plan and returns its ``flops_estimate`` —
+    the same per-backend ``flops_fn`` basis ``method="auto"`` ranks with.
+    :func:`repro_torch.spectral.plan_topk` prices its "dense" strategy
+    with exactly this call, so a top-k plan's sketch-vs-dense decision
+    and the solver's own backend selection share one cost model.  None
+    when the resolved backend registers no cost model.
+    """
+    return plan(config, shape, dtype, device=device).flops_estimate()
 
 
 _CONFIG_CALL_FIELDS = (("r", int), ("l0", float), ("max_iters", int),

@@ -199,7 +199,7 @@ def test_bf16_compute_plan_raises_beyond_bf16_cap_inside_f32_cap():
     """The per-dtype table, keyed on the compute dtype, gates the kernel
     backend: a kappa between the bf16 and f32 caps plans at f32 compute
     and raises at bf16 compute (reference: test_bf16_envelope.py)."""
-    kappa = 1.5e4
+    kappa = math.sqrt(tsvd.CUDA_BF16_KAPPA_MAX * tsvd.CUDA_F32_KAPPA_MAX)
     assert tsvd.CUDA_BF16_KAPPA_MAX < kappa < tsvd.CUDA_F32_KAPPA_MAX
     cfg = S.SvdConfig(method="zolo_cuda", kappa=kappa,
                       l0_policy="estimate_at_plan")
@@ -235,8 +235,10 @@ def test_auto_never_selects_cuda_beyond_the_compute_dtype_cap(monkeypatch):
     resolves to a plain backend there, and among the Zolo bindings to
     ``zolo_cuda`` inside it, on a CUDA device (resolution reads the
     device type only)."""
-    inside = 0.9 * tsvd.CUDA_BF16_KAPPA_MAX
-    between = 1.5e4
+    # inside the bf16 cap, at a kappa where QDWH prices below Zolo
+    inside = 9.0e3
+    assert inside < tsvd.CUDA_BF16_KAPPA_MAX
+    between = math.sqrt(tsvd.CUDA_BF16_KAPPA_MAX * tsvd.CUDA_F32_KAPPA_MAX)
     cuda = torch.device("cuda", 0)
     flops = registry.get_polar("zolo_cuda").flops_fn
     kw = dict(r=2, device=cuda)

@@ -34,11 +34,15 @@ def _imports(path):
 
 def test_no_jax_or_reference_imports():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 26
+    assert len(files) >= 37
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"kernels/matmul.py", "kernels/flash_attention.py",
             "core/elliptic.py", "core/structured_qr.py", "core/qdwh.py",
-            "core/newton.py", "core/eig.py", "core/linalg.py"} <= names
+            "core/newton.py", "core/eig.py", "core/linalg.py",
+            "resilience/errors.py", "resilience/health.py",
+            "resilience/escalate.py", "resilience/faultinject.py",
+            "spectral/sketch.py", "spectral/dnc.py", "spectral/topk.py",
+            "optim/compression.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
@@ -62,6 +66,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.elliptic, repro_torch.core.zolo_cuda\n"
             "import repro_torch.core.structured_qr, repro_torch.core.newton\n"
             "from repro_torch import polar_svd, polar_decompose\n"
+            "import repro_torch.resilience, repro_torch.spectral\n"
+            "import repro_torch.optim\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     assert _run(code, 0) == "[]"

@@ -157,8 +157,8 @@ def test_auto_and_cuda_pricing_on_cpu():
     with pytest.raises(ValueError, match="zolo_static"):
         S.plan(cuda_cfg, (32, 16), torch.float64, device="cpu")
     with pytest.raises(ValueError, match="envelope"):
-        S.plan(cuda_cfg.replace(kappa=1e5), (32, 16), torch.float32,
-               device="cpu")
+        S.plan(cuda_cfg.replace(kappa=10 * tsvd.CUDA_F32_KAPPA_MAX),
+               (32, 16), torch.float32, device="cpu")
 
 
 def test_not_yet_ported_values_raise():
@@ -174,8 +174,10 @@ def test_not_yet_ported_values_raise():
                torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):
         p.audit()
-    with pytest.raises(NotImplementedError):
-        p.svd_verified(torch.eye(8, dtype=torch.float64))
+    # svd_verified is ported (tests/test_torch_resilience.py): it runs
+    u, s, vh, health = p.svd_verified(torch.eye(8, dtype=torch.float64))
+    assert bool(health.finite) and torch.equal(s, p.svd(
+        torch.eye(8, dtype=torch.float64))[1])
     with pytest.raises(ValueError, match="shape"):
         p.svd(torch.eye(7, dtype=torch.float64))
     with pytest.raises(ValueError, match="unknown SvdConfig"):
