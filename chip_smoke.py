@@ -133,6 +133,41 @@ Phases, each printed as it runs:
     ``lowrank_truncate(a, 128)``: ||A - P Q^T||_F within 1e-4 relative
     of the Eckart-Young optimum, and P Q^T against (a)'s triplets.
 
+With ``--profile-split`` (not in the default run), then one phase-5
+solve split by device time into K1, K2, factorizations, triangular
+solves, products, ``eigh``, collectives/staging and other: its polar
+stage under ``torch.profiler`` (each kernel counted under the outermost
+op that launched it; the top kernels printed), its ``eigh`` timed alone
+(see ``split_solve``).
+
+17. paper Algorithm 3 (``repro_torch.dist``): GROUPED_WORLD = 4 ranks
+    spawned on the one card, joined by gloo (each with a collective
+    timeout; the parent has a deadline for all), each calling with the
+    full phase-5 matrix (synthesized on rank 0, broadcast): (a)
+    ``plan(SvdConfig(kappa, l0_policy="estimate_at_plan"), mesh=
+    zolo_group_mesh(4))``, the (4, 1) grid, cold and warm; (b) the same
+    on ``zolo_group_mesh(2)``, the (2, 2) grid (11,999 rows padded to
+    12,000, 6,000 a rank), then (``--profile-split``) one solve split on
+    rank 0 as above; (c) ``SvdConfig(l0_policy="runtime")`` on (2, 2)
+    (``zolo_grouped_dynamic``); (f) ``zolo_grouped_dynamic`` on (2, 2)
+    with l0 pinned at PINNED_L, below 10 sqrt(eps(f32)): the extreme
+    regime, where sep > 1 puts shifted CholeskyQR2 in place of the
+    Householder first iteration (no Householder term may run); (d)
+    ``solve_with_escalation`` of (b)'s config on (2, 2); (e)
+    ``compressed_psum`` of a 4,096^2 f32 gradient a rank at rank 64 over
+    the (2, 2) grid's "zolo" group, against its plain version from the
+    all-gathered gradients.  Per rank: the method, K1/K2 launches
+    (K1 = 3 + (I - 1), plus 1 for (c)'s sigma_min Gram; K2 = I), K2's xw
+    (1 on zolo index 0, 0 elsewhere), the all-reduces per axis ((a) 0 sep
+    / I zolo; (b) 2 + (I - 1) sep / I zolo; (c) 1 + 2 + 1 + 2 (I - 1) sep
+    / I zolo; (f) 2 + 1 + 2 (I - 1) sep / I zolo) and their bytes, the
+    local iterate's shape, wall time, peak memory, and that every rank
+    holds identical factors and (c), (f) the same iterations and l_init;
+    on rank 0 the phase-5 accuracy limits, (a)'s
+    s against phase 5's, and (a)'s polar/eigh split.  Gloo stages every
+    collective through host memory: these times are one card shared by
+    four processes, not the paper's multi-node scaling.
+
 The line before the last names the card and its power limit; the one
 before it is a JSON object with one record per kernel and route
 (``gram/simt``, ``gram/wgmma``, ``grouped_combine``, ``matmul/simt``,
@@ -150,6 +185,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -172,6 +208,21 @@ ENVELOPE_BF16 = (3e3, 1e4, 3e4, 1e5)
 # probe is a full n x n dynamic polar solve, up to 13 of them)
 TOPK_K = 128
 DNC_N = 4096
+# phase 17: grouped Algorithm 3 on this many gloo ranks sharing the card,
+# the collectives' timeout in every rank, the parent's deadline for all
+# of them, and 17e's compressed_psum: an (n, n) f32 gradient a rank,
+# rank-k factors, held to its plain version within CPSUM_TOL of
+# max|g_hat| (f32 sums over n = 4,096 products: eps sqrt(n) = 7.6e-6)
+GROUPED_WORLD = 4
+GROUPED_TIMEOUT = 300
+# 17f pins the dynamic driver's lower bound at phase 10's run-time bound on
+# the card, in the extreme regime (below 10 sqrt(eps(f32)) = 3.45e-3),
+# where a sep > 1 mesh puts shifted CholeskyQR2 in place of the
+# structured Householder first iteration
+PINNED_L = 2.59e-6
+GROUPED_DEADLINE = 480
+CPSUM_N, CPSUM_RANK = 4096, 64
+CPSUM_TOL = 1e-5
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
                    "gram/simt": 10, "gram/wgmma": 0,
@@ -1047,7 +1098,7 @@ def phase_main(torch, device, clock, n):
     main["plain_s"] = secs
     main["plain_s_diff"] = sdiff
     main["plain_launches"] = launches
-    return main, a, s_true
+    return main, a, s_true, s_cuda
 
 
 def phase_dynamic(torch, device, clock, a, s_true):
@@ -2136,12 +2187,673 @@ def phase_first_pass(torch, p, a):
     return rec
 
 
+# --- the device-time split (torch.profiler) ----------------------------------
+
+PROFILE_GROUPS = ("K1", "K2", "factorizations", "triangular solves",
+                  "products", "eigh", "collectives/staging", "other")
+# top-level torch ops by group: a kernel counts where the op that
+# launched it (its outermost enclosing op) belongs
+PROFILE_OPS = (
+    ("eigh", ("eigh", "syevd")),
+    ("collectives/staging", ("gloo", "c10d", "all_reduce", "allreduce",
+                             "all_gather", "allgather", "broadcast")),
+    ("factorizations", ("cholesky", "geqrf", "householder_product",
+                        "orgqr", "ormqr", "linalg_qr", "potrf", "getrf",
+                        "linalg_inv", "lu_factor")),
+    ("triangular solves", ("solve_triangular", "triangular_solve",
+                           "trsm")),
+    ("products", ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
+                  "aten::einsum", "aten::baddbmm", "aten::linear")))
+
+
+def profile_group(kernel, op=""):
+    """The group of one device kernel ``kernel`` launched under the
+    top-level op ``op`` ("" when no op encloses it)."""
+    k = kernel.lower()
+    if "gram_tiles" in k or "gram_shift" in k or "gram_bf16" in k:
+        return "K1"
+    if "combine_scalar" in k or "combine_vec4" in k:
+        return "K2"
+    if "memcpy" in k and ("dtoh" in k or "htod" in k):
+        return "collectives/staging"
+    o = op.lower()
+    for group, keys in PROFILE_OPS:
+        if any(key in o for key in keys):
+            return group
+    if "gemm" in k:
+        return "products"
+    return "other"
+
+
+def profile_split(torch, clock, fn, top=12):
+    """Device time of one ``fn()`` by group (``PROFILE_GROUPS``), from a
+    ``torch.profiler`` trace: each kernel goes to the group of the
+    outermost op that launched it, or by its own name when no op
+    encloses it (K1 and K2 are launched through ``ctypes``).  ``wall_s``
+    is fn's own synchronised time inside the trace; ``parse_s`` what
+    reading the trace took after it.  Returns (record, fn's result); the
+    record says "not measured" when the trace holds no device time (the
+    CPU rehearsal)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        clock.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        clock.sync()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # the trace's device events give each kernel name's time; the ops
+    # that launched them only split that time between groups.  Events
+    # that share a correlation id share one kernel list (on the H100 a
+    # batched cuSOLVER call repeated it thousands of times): read it once
+    events = prof.events()
+    cpu_names = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
+    shares, total, count, seen, group_of = {}, {}, 0, set(), {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU:
+            kernels = getattr(ev, "kernels", None) or []
+            if not kernels or ev.id in seen:
+                continue
+            seen.add(ev.id)
+            root = ev
+            while getattr(root, "cpu_parent", None) is not None:
+                root = root.cpu_parent
+            for k in kernels:
+                key = (k.name, root.name)
+                if key not in group_of:
+                    group_of[key] = profile_group(*key)
+                part = shares.setdefault(k.name, {})
+                g = group_of[key]
+                part[g] = part.get(g, 0.0) + k.duration
+        elif ev.name not in cpu_names:  # a device-side op annotation
+            count += 1
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            total[ev.name] = total.get(ev.name, 0.0) + ms
+    groups = {g: 0.0 for g in PROFILE_GROUPS}
+    by_kernel = {}
+    for name, ms in total.items():
+        part = shares.get(name) or {profile_group(name): 1.0}
+        norm = sum(part.values())
+        for g, w in part.items():
+            groups[g] += ms * w / norm
+            by_kernel[(name, g)] = by_kernel.get((name, g), 0.0) \
+                + ms * w / norm
+    device_ms = sum(total.values())
+    parse = time.perf_counter() - t1
+    if device_ms <= 0:
+        say(f"profiler: no device time in the trace (wall {wall:.3f} s): "
+            f"the split is not measured")
+        return {"wall_s": wall, "parse_s": parse, "device_ms": None,
+                "groups_ms": "not measured"}, out
+    rec = {"wall_s": wall, "parse_s": parse, "device_ms": device_ms,
+           "device_events": count, "groups_ms": groups,
+           "idle_share": max(0.0, 1.0 - device_ms / 1e3 / wall),
+           "top": [[name, g, ms] for (name, g), ms in sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:top]]}
+    say(f"profiler: wall {wall:.3f} s, device {device_ms / 1e3:.3f} s in "
+        f"{count} device events (trace read in {parse:.1f} s); "
+        + ", ".join(f"{g} {ms / 1e3:.3f} s" for g, ms in groups.items()))
+    for name, g, ms in rec["top"]:
+        say(f"  {ms:10.2f} ms  [{g}] {name[:100]}")
+    return rec, out
+
+
+# --- phase 17: grouped Algorithm 3 on gloo ranks sharing the card ------------
+
+
+class CollectiveCounter:
+    """Counts the all-reduces issued on each axis of the given meshes
+    while entered (``torch.distributed.all_reduce`` is wrapped, and
+    restored on exit), their bytes, and the shapes of the "zolo" ones:
+    that all-reduce carries the rank's local iterate."""
+
+    def __init__(self, meshes):
+        self.axis = {}
+        for mesh in meshes:
+            self.axis[id(mesh.sep_group)] = "sep"
+            self.axis[id(mesh.zolo_group)] = "zolo"
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real, self.calls = dist, dist.all_reduce, []
+
+        def counted(t, *args, group=None, **kw):
+            self.calls.append((self.axis.get(id(group), "other"),
+                               tuple(t.shape), t.numel() * t.element_size()))
+            return self.real(t, *args, group=group, **kw)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.real
+        return False
+
+    def record(self):
+        out = {}
+        for ax in ("sep", "zolo", "other"):
+            calls = [c for c in self.calls if c[0] == ax]
+            out[ax] = len(calls)
+            out[f"{ax}_bytes"] = sum(c[2] for c in calls)
+        out["zolo_shapes"] = sorted({c[1] for c in self.calls
+                                     if c[0] == "zolo"})
+        return out
+
+
+class XwRecorder:
+    """Records the X weight ``xw`` of every grouped combine while entered
+    (``repro_torch.kernels.ops.grouped_combine`` is wrapped: K2 on a CUDA
+    iterate)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.mod, self.real, self.xw = ops, ops.grouped_combine, []
+
+        def recorded(x, t, a, mhat, xw=1.0):
+            self.xw.append(float(xw))
+            return self.real(x, t, a, mhat, xw)
+
+        ops.grouped_combine = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_combine = self.real
+        return False
+
+
+def grouped_solve(torch, clock, p, a, counters, meshes, label):
+    """One ``p.svd_info(a)`` on this rank with every launch count, the
+    all-reduce counter and the combine weights set to 0 just before and
+    read just after; peak memory reset before."""
+    if a.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    with CollectiveCounter(meshes) as coll, XwRecorder() as xw, \
+            TermCounter(clock) as tc:
+        clock.sync()
+        t0 = time.perf_counter()
+        u, s, vh, info = p.svd_info(a)
+        clock.sync()
+        secs = time.perf_counter() - t0
+    rec = {"label": label, "method": p.method, "r": p.r, "sep": p.sep,
+           "seconds": secs, "launches": read_counts(counters),
+           "collectives": coll.record(), "xw": sorted(set(xw.xw)),
+           "terms": dict(tc.counts), "first_branch": first_branch(tc.counts),
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if a.device.type == "cuda" else None}
+    rec.update(info_record(info))
+    return (u, s, vh), rec
+
+
+def identical_on_ranks(torch, u, s, vh):
+    """True on every rank when all ranks hold bit-identical factors (a
+    digest of s, U's column sums and Vh's row sums, all-gathered)."""
+    import torch.distributed as dist
+
+    d = torch.cat([s.double(), u.double().sum(0), vh.double().sum(1)])
+    parts = [torch.empty_like(d) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, d)
+    return all(torch.equal(t, parts[0]) for t in parts)
+
+
+def agree_on_ranks(torch, device, values):
+    """The all-gathered ``values`` (floats) of every rank."""
+    import torch.distributed as dist
+
+    v = torch.tensor(values, dtype=torch.float64, device=device)
+    parts = [torch.empty_like(v) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, v)
+    return [t.tolist() for t in parts]
+
+
+def grouped_stages(torch, clock, p, a, rank):
+    """The polar/eigh split of one grouped solve: ``plan.polar`` on every
+    rank (it is collective), ``eigh`` of H timed on rank 0 only."""
+    clock.sync()
+    t0 = time.perf_counter()
+    _, h, _ = p.polar(a)
+    clock.sync()
+    t1 = time.perf_counter()
+    stages = {"polar_s": t1 - t0}
+    if rank == 0:
+        p._eig_spec.fn(h, **p._eig_kwargs)
+        clock.sync()
+        stages["eigh_s"] = time.perf_counter() - t1
+    return stages
+
+
+def grouped_compressed_psum(torch, clock, mesh, n, k):
+    """17e: ``compressed_psum`` of this rank's (n, n) f32 gradient over
+    the mesh's "zolo" group at rank k, against its plain version from
+    the all-gathered gradients (the same sums in the group's rank order,
+    the same CholeskyQR2); returns the errors and both times."""
+    import torch.distributed as dist
+
+    from repro_torch.core.structured_qr import cholesky_qr2
+    from repro_torch.optim import compressed_psum
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev)
+    me = dist.get_rank()
+    g = torch.randn((n, n), generator=gen.manual_seed(100 + me), device=dev)
+    err = 1e-3 * torch.randn((n, n), generator=gen.manual_seed(200 + me),
+                             device=dev)
+    q_prev = torch.randn((n, k), generator=gen.manual_seed(7), device=dev)
+    group = mesh.zolo_group
+    size = dist.get_world_size(group)
+
+    def plain():
+        g_fb = g + err
+        parts = [torch.empty_like(g_fb) for _ in range(size)]
+        dist.all_gather(parts, g_fb, group=group)
+        p = sum(gj @ q_prev for gj in parts)
+        p = cholesky_qr2(p)
+        q = sum(gj.mT @ p for gj in parts)
+        g_hat = p @ q.mT / size
+        return g_hat, g_fb - g_hat, q
+
+    got = compressed_psum(g, err, q_prev, k, group)
+    want = plain()
+    scale = float(want[0].abs().amax())
+    rec = {"n": n, "rank": k, "group_size": size,
+           "g_hat_err": float((got[0] - want[0]).abs().amax()) / scale,
+           "err_err": float((got[1] - want[1]).abs().amax()) / scale,
+           "q_err": float((got[2] - want[2]).abs().amax())
+           / float(want[2].abs().amax())}
+    del got, want
+    rec["ms"] = clock.ms(lambda: compressed_psum(g, err, q_prev, k, group),
+                         reps=3)
+    rec["plain_ms"] = clock.ms(plain, reps=3)
+    return rec
+
+
+def grouped_run(torch, rank, device, n, cpsum, profile):
+    """Phase 17 on one rank: 17a-17f (see the module docstring); with
+    ``profile`` one 17b solve split on rank 0."""
+    import torch.distributed as dist
+
+    import repro_torch.solver as S
+    from repro_torch.configs import svd_paper
+    from repro_torch.dist import zolo_group_mesh
+    from repro_torch.resilience import solve_with_escalation
+
+    clock = Clock(torch, device)
+    counters = kernel_modules()
+    m41 = zolo_group_mesh(4, device=device)
+    m22 = zolo_group_mesh(2, device=device)
+    meshes = (m41, m22)
+    out = {"rank": rank, "position_4x1": [m41.zolo_index, m41.sep_index],
+           "position_2x2": [m22.zolo_index, m22.sep_index]}
+    if rank == 0:
+        a, s_true = svd_paper.synthesize("linverse", n=n,
+                                         dtype=torch.float32, device=device)
+    else:
+        a = torch.empty((n, n), dtype=torch.float32, device=device)
+        s_true = torch.empty((n,), dtype=torch.float64, device=device)
+    clock.sync()
+    t0 = time.perf_counter()
+    dist.broadcast(a, 0)
+    dist.broadcast(s_true, 0)
+    clock.sync()
+    out["broadcast_s"] = time.perf_counter() - t0
+    cfg = S.SvdConfig(kappa=KAPPA, l0_policy="estimate_at_plan")
+
+    # 17a: (4, 1), cold then warm
+    p = S.plan(cfg, (n, n), torch.float32, mesh=m41)
+    fac, cold = grouped_solve(torch, clock, p, a, counters, meshes, "cold")
+    del fac
+    fac, rec = grouped_solve(torch, clock, p, a, counters, meshes, "warm")
+    rec["schedule"] = len(p.schedule)
+    rec["cold_s"] = cold["seconds"]
+    rec["identical"] = identical_on_ranks(torch, *fac)
+    if rank == 0:
+        rec["accuracy"] = accuracy(torch, a, *fac, s_true)
+        rec["s"] = fac[1].double().cpu().tolist()
+    del fac
+    rec["stages"] = grouped_stages(torch, clock, p, a, rank)
+    out["17a"] = rec
+
+    # 17b: (2, 2), the same config; then (profile) one solve under the
+    # profiler
+    p = S.plan(cfg, (n, n), torch.float32, mesh=m22)
+    fac, rec = grouped_solve(torch, clock, p, a, counters, meshes, "warm")
+    rec["schedule"] = len(p.schedule)
+    rec["identical"] = identical_on_ranks(torch, *fac)
+    if rank == 0:
+        rec["accuracy"] = accuracy(torch, a, *fac, s_true)
+    del fac
+    if profile and rank == 0:
+        rec["profile"] = split_solve(torch, clock, p, a)
+    elif profile:
+        p.polar(a)
+    out["17b"] = rec
+
+    # 17c: run-time conditioning on (2, 2)
+    p = S.plan(S.SvdConfig(l0_policy="runtime"), (n, n), torch.float32,
+               mesh=m22)
+    fac, rec = grouped_solve(torch, clock, p, a, counters, meshes, "warm")
+    rec["identical"] = identical_on_ranks(torch, *fac)
+    rec["ranks_iterations_l_init"] = agree_on_ranks(
+        torch, device, [rec["iterations"], rec["l_init"]])
+    if rank == 0:
+        rec["accuracy"] = accuracy(torch, a, *fac, s_true)
+    del fac
+    out["17c"] = rec
+
+    # 17f: the bound pinned in the extreme regime on (2, 2): the shifted
+    # CholeskyQR2 substitution for the Householder first iteration
+    p = S.plan(S.SvdConfig(method="zolo_grouped_dynamic", l0=PINNED_L),
+               (n, n), torch.float32, mesh=m22)
+    fac, rec = grouped_solve(torch, clock, p, a, counters, meshes, "warm")
+    rec["identical"] = identical_on_ranks(torch, *fac)
+    rec["ranks_iterations_l_init"] = agree_on_ranks(
+        torch, device, [rec["iterations"], rec["l_init"]])
+    if rank == 0:
+        rec["accuracy"] = accuracy(torch, a, *fac, s_true)
+    del fac
+    out["17f"] = rec
+
+    # 17d: the ladder on 17b's config
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with RungProbe(clock, counters) as probe, \
+            CollectiveCounter(meshes) as coll:
+        clock.sync()
+        t0 = time.perf_counter()
+        u, s, vh, trail = solve_with_escalation(a, cfg, mesh=m22)
+        clock.sync()
+        secs = time.perf_counter() - t0
+    rec = {"seconds": secs, "trail": trail_record(trail, probe.rungs),
+           "collectives": coll.record(),
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if device.type == "cuda" else None}
+    rec["launches"] = sum_launches(rec["trail"])
+    if rank == 0:
+        rec["accuracy"] = accuracy(torch, a, u, s, vh, s_true)
+    del u, s, vh
+    out["17d"] = rec
+
+    del a
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # 17e: compressed_psum over the zolo group of (2, 2)
+    out["17e"] = grouped_compressed_psum(torch, clock, m22, *cpsum)
+    return out
+
+
+def grouped_rank(rank, world, init, n, dev_type, cpsum, profile, queue):
+    """One rank of phase 17 (a spawned process): join the gloo world,
+    run 17a-17f, put the record (or the traceback) on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        torch.set_num_threads(1)
+        device = torch.device(dev_type, 0) if dev_type == "cuda" else \
+            torch.device("cpu")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        dist.init_process_group(
+            "gloo", init_method=init, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=GROUPED_TIMEOUT))
+        try:
+            queue.put(grouped_run(torch, rank, device, n, cpsum, profile))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def check_grouped(device, recs, s_main, n):
+    """The parent's checks of phase 17's per-rank records."""
+    on_card = device.type == "cuda"
+    ranks = sorted(recs)
+    r0 = recs[0]
+    # 17a and 17b: the reference's static pick.  A rank's group evaluates
+    # one term: a CholeskyQR2 first iteration is 3 K1 launches (the
+    # shifted Gram, the Q1 and the Q2 Grams), a Cholesky one 1; one K2
+    # combine an iteration
+    for key, sep in (("17a", 1), ("17b", 2)):
+        iters = r0[key]["schedule"]
+        want_k = zolo_launch_want(iters, 3)
+        want_c = {"sep": 0 if sep == 1 else 2 + (iters - 1), "zolo": iters}
+        m_pad = n + (-n) % sep
+        for r in ranks:
+            rec = recs[r][key]
+            check(rec["method"] == "zolo_grouped",
+                  f"{key} rank {r}: method {rec['method']}")
+            check(rec["identical"], f"{key}: ranks disagree")
+            if on_card:
+                check(rec["launches"] == want_k, f"{key} rank {r}: "
+                      f"launches {rec['launches']}, expected {want_k}")
+            got_c = {ax: rec["collectives"][ax] for ax in ("sep", "zolo")}
+            check(got_c == want_c, f"{key} rank {r}: all-reduces {got_c}, "
+                  f"expected {want_c}")
+            check(rec["collectives"]["zolo_shapes"] == [(m_pad // sep, n)],
+                  f"{key} rank {r}: local iterate "
+                  f"{rec['collectives']['zolo_shapes']}")
+            zolo_index = recs[r][f"position_{4 if sep == 1 else 2}x{sep}"][0]
+            want_xw = [1.0] if zolo_index == 0 else [0.0]
+            check(not on_card or rec["xw"] == want_xw, f"{key} rank {r}: "
+                  f"K2's xw {rec['xw']}, expected {want_xw}")
+    s_a = r0["17a"]["s"]
+    s_max = s_a[0]
+    s_vs_main = max(abs(x - y) for x, y in zip(s_a, s_main)) / s_max
+    say(f"17a s against phase 5's: {s_vs_main:.3e}")
+    check(s_vs_main <= ACCURACY_TOL, f"17a s vs phase 5 {s_vs_main:.3e}")
+    # 17c: the run-time bound, CholeskyQR2 first at sep = 2
+    c = r0["17c"]
+    iters = c["iterations"]
+    for r in ranks:
+        rec = recs[r]["17c"]
+        check(rec["method"] == "zolo_grouped_dynamic",
+              f"17c rank {r}: method {rec['method']}")
+        check(rec["identical"], "17c: ranks disagree")
+        check(rec["first_branch"] == "cholqr2",
+              f"17c rank {r}: first branch {rec['first_branch']}")
+        check(rec["converged"], f"17c rank {r}: not converged")
+        check(all(v == rec["ranks_iterations_l_init"][0]
+                  for v in rec["ranks_iterations_l_init"]),
+              f"17c: ranks disagree on (iterations, l_init) "
+              f"{rec['ranks_iterations_l_init']}")
+        want_c = {"sep": 1 + 2 + 1 + 2 * (iters - 1), "zolo": iters}
+        got_c = {ax: rec["collectives"][ax] for ax in ("sep", "zolo")}
+        check(got_c == want_c, f"17c rank {r}: all-reduces {got_c}, "
+              f"expected {want_c}")
+        if on_card:
+            want_k = zolo_launch_want(iters, 3 + 1)  # + the sigma_min Gram
+            check(rec["launches"] == want_k, f"17c rank {r}: launches "
+                  f"{rec['launches']}, expected {want_k}")
+    # 17f: the pinned bound in the extreme regime: the Householder first
+    # iteration replaced by shifted CholeskyQR2 at sep = 2, no estimate
+    f = r0["17f"]
+    iters = f["iterations"]
+    hh_thresh = 10.0 * (2.0 ** -23) ** 0.5  # 10 sqrt(eps(f32))
+    for r in ranks:
+        rec = recs[r]["17f"]
+        check(rec["method"] == "zolo_grouped_dynamic",
+              f"17f rank {r}: method {rec['method']}")
+        check(rec["l_init"] < hh_thresh, f"17f rank {r}: l_init "
+              f"{rec['l_init']:.4g} not below 10 sqrt(eps) = {hh_thresh:.4g}")
+        check(rec["identical"], "17f: ranks disagree")
+        check(rec["first_branch"] == "cholqr2" and
+              rec["terms"]["term_sum_householder"] == 0,
+              f"17f rank {r}: first-iteration terms {rec['terms']}")
+        check(rec["converged"], f"17f rank {r}: not converged")
+        check(all(v == rec["ranks_iterations_l_init"][0]
+                  for v in rec["ranks_iterations_l_init"]),
+              f"17f: ranks disagree on (iterations, l_init) "
+              f"{rec['ranks_iterations_l_init']}")
+        want_c = {"sep": 2 + 1 + 2 * (iters - 1), "zolo": iters}
+        got_c = {ax: rec["collectives"][ax] for ax in ("sep", "zolo")}
+        check(got_c == want_c, f"17f rank {r}: all-reduces {got_c}, "
+              f"expected {want_c}")
+        if on_card:
+            want_k = zolo_launch_want(iters, 3)
+            check(rec["launches"] == want_k, f"17f rank {r}: launches "
+                  f"{rec['launches']}, expected {want_k}")
+    # 17d: healthy at rung 0
+    for r in ranks:
+        trail = recs[r]["17d"]["trail"]
+        check([t["outcome"] for t in trail] == ["passed"],
+              f"17d rank {r}: trail {trail}")
+        if on_card:
+            k = recs[r]["17d"]["launches"]
+            check(k["gram"] > 0 and k["grouped_combine"] > 0,
+                  f"17d rank {r}: the grouped rung launched {k}")
+            check(k == recs[0]["17d"]["launches"],
+                  f"17d: ranks launched {k} and {recs[0]['17d']['launches']}")
+    # 17e
+    for r in ranks:
+        e = recs[r]["17e"]
+        worst = max(e["g_hat_err"], e["err_err"], e["q_err"])
+        check(worst <= CPSUM_TOL, f"17e rank {r}: compressed_psum vs plain "
+              f"{worst:.3e} > {CPSUM_TOL:g}")
+
+
+def split_solve(torch, clock, p, a, eig=True):
+    """One solve of plan ``p`` split: its polar stage (prescale, Zolo-PD,
+    ``form_h``: ``p.polar``) traced by ``profile_split``, then (``eig``)
+    its ``eigh`` of H timed alone by the clock — one cuSOLVER call that
+    launches so many small kernels that reading their trace would take
+    minutes — and recorded as the "eigh" group.  The rest of the solve,
+    U = Q V and the sort, is one product: not split."""
+    rec, (_, h, _) = profile_split(torch, clock, lambda: p.polar(a))
+    if eig:
+        clock.sync()
+        t0 = time.perf_counter()
+        p._eig_spec.fn(h, **p._eig_kwargs)
+        clock.sync()
+        rec["eigh_s"] = time.perf_counter() - t0
+        if isinstance(rec["groups_ms"], dict):
+            rec["groups_ms"]["eigh"] += rec["eigh_s"] * 1e3
+        say(f"eigh (clock) {rec['eigh_s']:.3f} s")
+    return rec
+
+
+def phase_profile(torch, device, clock, a):
+    """The device-time split of one phase-5 solve (``split_solve``)."""
+    import repro_torch.solver as S
+
+    say("== profile: one phase-5 solve, its polar stage under "
+        "torch.profiler")
+    cfg = S.SvdConfig(method="zolo_cuda", kappa=KAPPA,
+                      l0_policy="estimate_at_plan", r=R)
+    p = S.plan(cfg, tuple(a.shape), torch.float32, device=device)
+    return split_solve(torch, clock, p, a)
+
+
+def phase_grouped(torch, device, n, s_main, cpsum, profile):
+    """Phase 17: paper Algorithm 3 on GROUPED_WORLD gloo ranks sharing
+    the device (spawned; each rank runs K1/K2 on the card, the
+    collectives go through gloo and host memory)."""
+    import queue as queue_mod
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    say(f"== phase 17: grouped Algorithm 3, {GROUPED_WORLD} gloo ranks on "
+        f"{device}, linverse n = {n}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    scratch = os.path.join(HERE, "build")
+    os.makedirs(scratch, exist_ok=True)
+    init = "file://" + os.path.join(tempfile.mkdtemp(dir=scratch), "init")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=grouped_rank,
+                         args=(r, GROUPED_WORLD, init, n, device.type,
+                               cpsum, profile, results))
+             for r in range(GROUPED_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    recs = {}
+    try:
+        while len(recs) < GROUPED_WORLD:
+            if time.perf_counter() - t0 > GROUPED_DEADLINE:
+                fail(f"phase 17 ranks did not finish within "
+                     f"{GROUPED_DEADLINE} s")
+            try:
+                rec = results.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"a phase 17 rank died (exit codes "
+                      f"{[p.exitcode for p in procs]})")
+                continue
+            check("error" not in rec, f"phase 17 rank {rec['rank']} "
+                  f"failed:\n{rec.get('error')}")
+            recs[rec["rank"]] = rec
+        for p in procs:
+            p.join(60)
+        check(all(p.exitcode == 0 for p in procs),
+              f"phase 17 ranks exited {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(os.path.dirname(init[len("file://"):]),
+                      ignore_errors=True)
+    secs = time.perf_counter() - t0
+    for key in ("17a", "17b", "17c", "17f", "17d"):
+        rows = [recs[r][key] for r in sorted(recs)]
+        acc = rows[0].get("accuracy")
+        say(f"{key}: " + "; ".join(
+            f"rank {r}: {row.get('method', 'ladder')} "
+            f"{row['seconds']:.3f} s, K1 "
+            f"{row['launches']['gram']} K2 "
+            f"{row['launches']['grouped_combine']}, all-reduces "
+            f"{row['collectives']['sep']} sep / "
+            f"{row['collectives']['zolo']} zolo, peak "
+            + ("not measured" if row["peak_bytes"] is None
+               else f"{row['peak_bytes'] / 2**30:.2f} GiB")
+            for r, row in enumerate(rows)))
+        if acc:
+            say(f"{key} rank 0 accuracy: {acc}")
+    say(f"17a stages (rank 0): {recs[0]['17a']['stages']}; 17c l_init "
+        f"{recs[0]['17c']['l_init']:.4g}, iterations "
+        f"{recs[0]['17c']['iterations']}, first branch "
+        f"{recs[0]['17c']['first_branch']}; 17f l_init "
+        f"{recs[0]['17f']['l_init']:.4g}, iterations "
+        f"{recs[0]['17f']['iterations']}, first branch "
+        f"{recs[0]['17f']['first_branch']}")
+    say(f"17e: {recs[0]['17e']}")
+    check_grouped(device, recs, s_main, n)
+    say(f"phase 17: {secs:.1f} s, broadcast {recs[0]['broadcast_s']:.3f} s")
+    for r in recs.values():
+        r["17a"].pop("s", None)
+    return {"seconds": secs, "world": GROUPED_WORLD, "ranks": recs}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="run every phase but the build on the CPU at a "
                          "tiny size (the wrappers then run their plain "
                          "versions); prints no ok line")
+    ap.add_argument("--profile-split", action="store_true",
+                    help="also split one phase-5 solve, and one 17b solve "
+                         "on rank 0, by device time under torch.profiler "
+                         "(about 90 s more on the card)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -2162,11 +2874,13 @@ def main(argv=None) -> int:
         mm_aligned, mm_transposed = MM_ALIGNED, MM_TRANSPOSED
         baseline_n, batch_n, topk_k, dnc_n = BASELINE_N, BATCH_N, TOPK_K, \
             DNC_N
+        cpsum = (CPSUM_N, CPSUM_RANK)
     else:
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
         mm_aligned, mm_transposed = 168, 64
         baseline_n, batch_n, topk_k, dnc_n = 128, 64, 8, 128
+        cpsum = (128, 8)
     clock = Clock(torch, device)
 
     t_start = time.perf_counter()
@@ -2182,7 +2896,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     record["times"] = times
     record["path_launches"] = paths
-    main_rec, a, s_true = phase_main(torch, device, clock, n)
+    main_rec, a, s_true, s_main = phase_main(torch, device, clock, n)
     record["main"] = main_rec
     dyn_rec, s_dyn = phase_dynamic(torch, device, clock, a, s_true)
     record["dynamic"] = dyn_rec
@@ -2203,7 +2917,11 @@ def main(argv=None) -> int:
     record["envelope"] = env_rec = phase_envelope(torch, device, clock, n)
     record["topk"] = topk_rec = phase_topk(torch, device, clock, a, s_true,
                                            topk_k, dnc_n)
+    if args.profile_split:
+        record["profile_static"] = phase_profile(torch, device, clock, a)
     del a
+    record["grouped"] = grouped_rec = phase_grouped(
+        torch, device, n, s_main.tolist(), cpsum, args.profile_split)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels = []
@@ -2237,6 +2955,13 @@ def main(argv=None) -> int:
         "topk_adaptive": topk_rec["adaptive"]["launches"],
         f"topk_dnc_n{dnc_n}": topk_rec["dnc"]["launches"],
         "lowrank_truncate": topk_rec["lowrank_truncate"]["launches"]})
+    # phase 17, per rank (every rank's counts were checked equal)
+    g0 = grouped_rec["ranks"][0]
+    solves.update({"grouped_static_4x1": g0["17a"]["launches"],
+                   "grouped_static_2x2": g0["17b"]["launches"],
+                   "grouped_dynamic_2x2": g0["17c"]["launches"],
+                   "grouped_dynamic_pinned_2x2": g0["17f"]["launches"],
+                   "escalation_grouped_2x2": g0["17d"]["launches"]})
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],

@@ -9,14 +9,15 @@ Paper Algorithm 2 (Zolo-SVD) and its QDWH-SVD sibling:
 plus the direct baselines: ``torch.linalg.svd`` (the PDGESVD role) and a
 one-sided (Hestenes) block-Jacobi SVD, :func:`jacobi_svd`.
 
-Port of the dense single-device registrations of ``repro/core/svd.py`` —
-``zolo`` (dynamic), ``zolo_static``, ``zolo_cuda`` and
-``zolo_cuda_dynamic`` (the counterparts of ``zolo_pallas`` and
-``zolo_pallas_dynamic``), ``qdwh``, ``qdwh_static``, the ``newton``
-baseline, the ``svd`` oracle, and the eigensolvers ``eigh`` and
-``jacobi`` — of the one-call wrappers :func:`polar_decompose` and
-:func:`polar_svd`, and of ``svd_residual``/``orthogonality``.
-The assembly itself lives in :mod:`repro_torch.solver.planner`.
+Port of the registrations of ``repro/core/svd.py`` — ``zolo``
+(dynamic), ``zolo_static``, ``zolo_cuda`` and ``zolo_cuda_dynamic`` (the
+counterparts of ``zolo_pallas`` and ``zolo_pallas_dynamic``), the grouped
+(Algorithm 3) ``zolo_grouped`` and ``zolo_grouped_dynamic``, ``qdwh``,
+``qdwh_static``, the ``newton`` baseline, the ``svd`` oracle, and the
+eigensolvers ``eigh`` and ``jacobi`` — of the one-call wrappers
+:func:`polar_decompose` and :func:`polar_svd`, and of
+``svd_residual``/``orthogonality``.  The assembly itself lives in
+:mod:`repro_torch.solver.planner`.
 """
 
 from __future__ import annotations
@@ -37,22 +38,71 @@ from repro_torch.core import zolo as _zolo
 from repro_torch.core import zolo_cuda as _zolo_cuda
 from repro_torch.core.registry import register_eig, register_polar
 
+def _grouped_zolo_adapter(a, *, mesh, l0=None, r=None, want_h: bool = False,
+                          hermitian_source=None, schedule=None, **kw):
+    """The (q, h, info) contract through Algorithm-3 grouped execution,
+    with the kwargs of ``zolo_pd_static`` and a plan-built ``schedule``.
+    Imported lazily: core does not depend on repro_torch.dist."""
+    from repro_torch.dist import grouped as _grouped
+
+    if l0 is None and schedule is None:
+        raise ValueError("grouped zolo execution needs a static l0= or a "
+                         "plan-built schedule=")
+    q, info = _grouped.grouped_zolo_pd_static(a, mesh=mesh, l0=l0, r=r,
+                                              schedule=schedule,
+                                              return_info=True, **kw)
+    src = a if hermitian_source is None else hermitian_source
+    h = _qdwh.form_h(q, src) if want_h else None
+    return q, h, info
+
+
+def _grouped_zolo_dynamic_adapter(a, *, mesh, want_h: bool = False,
+                                  hermitian_source=None, **kw):
+    """(q, h, info) over the run-time-conditioning Algorithm-3 driver:
+    the sigma_min bound is estimated sep-collectively and feeds the
+    run-time Zolotarev coefficients."""
+    from repro_torch.dist import grouped as _grouped
+
+    q, info = _grouped.grouped_zolo_pd_dynamic(a, mesh=mesh,
+                                               return_info=True, **kw)
+    src = a if hermitian_source is None else hermitian_source
+    h = _qdwh.form_h(q, src) if want_h else None
+    return q, h, info
+
+
 # --- plan-time cost models (flops_fn) ---------------------------------------
-
-
-def _gram_shared_iteration_flops(m, n, r, iters) -> float:
-    """``repro/dist/grouped.py::grouped_iteration_flops`` at sep = 1 with
-    gram_shared=True: per iteration one shared Gram (2 m n^2) plus, per
-    term, an n^3/3 Cholesky and two triangular solves (2 m n^2)."""
-    gram = 2.0 * m * n * n
-    per_term = n ** 3 / 3.0 + 2.0 * m * n * n
-    return float(iters * (gram + r * per_term))
+# The Zolotarev models are repro_torch.dist.grouped's flop accounting
+# (imported lazily: core does not depend on repro_torch.dist at import).
 
 
 def _zolo_flops(m, n, *, r, kappa, grouped=False, dtype=None, sep=1,
                 device=None):
+    from repro_torch.dist.grouped import grouped_iteration_flops
+
     iters = _coeffs.zolo_iter_count(float(kappa), int(r))
-    return _gram_shared_iteration_flops(m, n, int(r), iters)
+    # one address space shares the Gram across the r terms; grouped
+    # (Alg. 3) execution recomputes it per group, its work split over sep
+    return grouped_iteration_flops(m, n, int(r), iters,
+                                   gram_shared=not grouped,
+                                   sep=int(sep) if grouped else 1)
+
+
+def _zolo_grouped_dynamic_flops(m, n, *, r, kappa, grouped=False,
+                                dtype=None, sep=1, device=None):
+    """The static grouped arithmetic plus what run-time conditioning
+    costs: the sep-collective sigma_min estimate (one distributed Gram,
+    the replicated n^3/3 Cholesky and ~8 pairs of O(n^2) solves) and one
+    safety iteration (the bound's 0.5 factor).  The margin keeps auto on
+    the static schedule whenever l0 is known at plan time."""
+    from repro_torch.dist.grouped import grouped_iteration_flops
+
+    sep_eff = int(sep) if grouped else 1
+    iters = _coeffs.zolo_iter_count(float(kappa), int(r)) + 1
+    base = grouped_iteration_flops(m, n, int(r), iters,
+                                   gram_shared=not grouped, sep=sep_eff)
+    estimate = 2.0 * m * n * n / sep_eff + n ** 3 / 3.0 + 8 * 2.0 * n * n
+    # every group pays the estimate (the summed-over-groups basis)
+    return base + (int(r) if grouped else 1) * estimate
 
 
 # The conditioning envelope of the f32-accumulating kernels, keyed by
@@ -143,10 +193,11 @@ def _qdwh_static_planfn(res):
 
 
 def _zolo_dynamic_planfn(res):
-    """Shared by the dynamic Zolo bindings (``zolo``, ``zolo_cuda_dynamic``):
-    an explicit l0 (or plan-time estimate) short-circuits the run-time
-    bound, and the config's ``qr_mode`` knob picks the peeled first
-    iteration (the drivers' ``first_mode``)."""
+    """Shared by the dynamic Zolo bindings (``zolo``, ``zolo_cuda_dynamic``,
+    ``zolo_grouped_dynamic``): an explicit l0 (or plan-time estimate)
+    short-circuits the run-time bound, and the config's ``qr_mode`` knob
+    picks the peeled first iteration (the drivers' ``first_mode``).  A
+    grouped plan's r is the mesh's."""
     kw = {}
     if res.r is not None:
         kw["r"] = res.r
@@ -207,10 +258,26 @@ register_polar("zolo", dynamic=True, flops_fn=_zolo_flops,
                plan_fn=_zolo_dynamic_planfn,
                description="dynamic Zolo-PD, run-time coefficients, plain "
                            "torch ops")(_zolo.zolo_pd)
-register_polar("zolo_static", flops_fn=_zolo_flops,
+register_polar("zolo_static", supports_grouped=True,
+               grouped_fn=_grouped_zolo_adapter, flops_fn=_zolo_flops,
                plan_fn=_zolo_static_planfn,
                description="precomputed-schedule Zolo-PD, plain torch ops")(
     _zolo.zolo_pd_static)
+register_polar("zolo_grouped", supports_grouped=True, requires_mesh=True,
+               grouped_fn=_grouped_zolo_adapter, flops_fn=_zolo_flops,
+               plan_fn=_zolo_static_planfn,
+               description="paper Alg. 3: one Zolotarev term per group of "
+                           "ranks (K1/K2 on a CUDA iterate)")(
+    _grouped_zolo_adapter)
+register_polar("zolo_grouped_dynamic", dynamic=True, supports_grouped=True,
+               requires_mesh=True,
+               grouped_fn=_grouped_zolo_dynamic_adapter,
+               flops_fn=_zolo_grouped_dynamic_flops,
+               plan_fn=_zolo_dynamic_planfn,
+               description="paper Alg. 3 with run-time conditioning: a "
+                           "sep-collective sigma_min bound feeding run-time "
+                           "Zolotarev coefficients")(
+    _grouped_zolo_dynamic_adapter)
 register_polar("zolo_cuda", flops_fn=_zolo_cuda_flops,
                plan_fn=_cuda_planfn(_zolo_static_planfn),
                fallback="zolo_static", kappa_max_f32=CUDA_F32_KAPPA_MAX,
@@ -272,7 +339,7 @@ def _jacobi_backend(h, *, nb: int = 32, **_):
     return _eig.padded_block_jacobi_eigh(h, nb=nb)
 
 
-def polar_decompose(a, method: str = "zolo", **kw):
+def polar_decompose(a, method: str = "zolo", *, mesh=None, **kw):
     """Polar decomposition in one call.  Returns (q, h, info) with
     A ~= Q H.
 
@@ -286,27 +353,33 @@ def polar_decompose(a, method: str = "zolo", **kw):
     H (when the backend's ``want_h`` asks for it) is the *right* polar
     factor, square with trailing dim n = a.shape[-1]: for m < n the
     canonical factorization A^T = Q_w H_w is re-oriented as
-    H = Q_w H_w Q_w^T, so A = Q H holds in every orientation."""
+    H = Q_w H_w Q_w^T, so A = Q H holds in every orientation.
+
+    ``mesh=`` (:func:`repro_torch.dist.zolo_group_mesh`) runs a
+    grouped-capable method as Algorithm 3; every rank of the mesh calls
+    with the full ``a`` and gets the full result."""
     import repro_torch.solver.planner as _planner
 
     pl, runtime_kw = _planner.plan_for_call(
-        a.shape[-2:], a.dtype, method=method, device=a.device, kw=kw)
+        a.shape[-2:], a.dtype, method=method, device=a.device, mesh=mesh,
+        kw=kw)
     return pl._polar_impl(a, extra=runtime_kw)
 
 
 def polar_svd(a, method: str = "zolo", eig_method: str = "eigh",
-              nb: int = 32, **kw):
+              nb: int = 32, *, mesh=None, **kw):
     """SVD A = U diag(s) V^H via PD + EIG (paper Alg. 2) in one call.
 
     Returns (u, s, vh) with s descending — a drop-in for
-    ``torch.linalg.svd(a, full_matrices=False)``.  Like
+    ``torch.linalg.svd(a, full_matrices=False)``.  ``mesh=`` routes the
+    polar stage through grouped (Algorithm 3) execution.  Like
     :func:`polar_decompose`, a thin wrapper over the plan path."""
     import repro_torch.solver.planner as _planner
 
     kw.setdefault("want_h", True)
     pl, runtime_kw = _planner.plan_for_call(
         a.shape[-2:], a.dtype, method=method, eig_method=eig_method,
-        nb=nb, device=a.device, kw=kw)
+        nb=nb, device=a.device, mesh=mesh, kw=kw)
     return pl._svd_impl(a, extra=runtime_kw)
 
 

@@ -1,11 +1,18 @@
-"""Low-rank compression through the partial-spectrum planner.
+"""Low-rank gradient compression.
 
-Port of ``repro/optim/compression.py``: :func:`lowrank_truncate` only.
-``compressed_psum`` needs the collectives of the (r, sep) distribution
-and the PowerSGD helpers come with ZoloMuon; neither is ported yet.
+Port of ``repro/optim/compression.py``: :func:`lowrank_truncate` (the
+one-shot truncation through the partial-spectrum planner) and
+:func:`compressed_psum` (the PowerSGD-style all-reduce of the rank-k
+factors instead of the gradient).  The PowerSGD helpers of the optimizer
+(``lowrank_factor``, ``compress_decompress``, ``init_compression_state``)
+come with ZoloMuon and are not ported yet.
 """
 
 from __future__ import annotations
+
+import torch.distributed as dist
+
+from repro_torch.core.structured_qr import cholesky_qr2 as _cholqr2
 
 
 def lowrank_truncate(g, rank: int, *, strategy: str = "auto",
@@ -31,3 +38,24 @@ def lowrank_truncate(g, rank: int, *, strategy: str = "auto",
         g.shape[-2:], g.dtype, device=g.device)
     u, s, vh = plan.topk(g) if g.ndim == 2 else plan.topk_batched(g)
     return u * s[..., None, :], vh.mT
+
+
+def compressed_psum(g, err, q_prev, rank: int, group):
+    """All-reduce the rank-``rank`` factors (P, Q) over the process
+    ``group`` rather than G.  Returns (g_hat, new_err, q_new).
+
+    Every rank of ``group`` calls it with its *local* gradient ``g``
+    (the same shape on each), its error-feedback buffer ``err`` and the
+    shared ``q_prev`` (n, rank).  P = (G + err) Q_prev is summed over the
+    group and orthonormalized by shifted CholeskyQR2, Q = (G + err)^T P is
+    summed, and ``g_hat = P Q^T / size`` is the group's mean gradient
+    through rank-``rank`` factors: the traffic per matrix drops from
+    m n to rank (m + n) words."""
+    g_fb = g + err
+    p = g_fb @ q_prev
+    dist.all_reduce(p, group=group)
+    p = _cholqr2(p)
+    q = g_fb.mT @ p
+    dist.all_reduce(q, group=group)
+    g_hat = p @ q.mT / dist.get_world_size(group)
+    return g_hat, g_fb - g_hat, q

@@ -25,9 +25,10 @@ through the plan cache with a config one notch more conservative:
 Rungs are derived from registry capability flags (``fallback``,
 ``dynamic``, ``is_oracle``) and the config — never from method names —
 so a new backend slots into the ladder by declaring its flags.  Every
-rung is planned on the input's device.  A rung whose config cannot plan
-there (e.g. an f64 compute on a kernel backend) is recorded in the trail
-as ``plan-error`` and skipped, not silently dropped.  If no rung passes,
+rung is planned on the input's device (and mesh).  A rung whose config
+cannot plan there (e.g. an f64 compute on a kernel backend, or
+``householder`` on a sep > 1 mesh) is recorded in the trail as
+``plan-error`` and skipped, not silently dropped.  If no rung passes,
 :class:`~repro_torch.resilience.errors.SolveFailure` carries the full
 :class:`RungAttempt` trail out.
 """
@@ -116,13 +117,15 @@ def escalation_ladder(plan) -> List[Tuple[SvdConfig, str]]:
     return deduped
 
 
-def solve_with_escalation(a, config: SvdConfig, *,
+def solve_with_escalation(a, config: SvdConfig, *, mesh=None,
                           orth_tol: Optional[float] = None,
                           max_rungs: Optional[int] = None):
     """Verified SVD of one matrix, climbing the ladder until healthy.
 
-    Every rung is planned on ``a``'s device through the plan cache (a
-    retried rung re-uses its plan), every attempt is judged by
+    Every rung is planned on ``a``'s device (and on ``mesh``, a
+    :func:`repro_torch.dist.zolo_group_mesh` whose every rank calls this
+    with the full ``a``) through the plan cache (a retried rung re-uses
+    its plan), every attempt is judged by
     :func:`repro_torch.resilience.health.judge_plan`, and the return is
     ``(u, s, vh, trail)`` from the first healthy rung.  Exhausting the
     ladder raises :class:`SolveFailure` carrying the full trail.
@@ -139,14 +142,16 @@ def solve_with_escalation(a, config: SvdConfig, *,
             f"{tuple(a.shape)}; batched callers triage entries "
             f"individually")
     shape = tuple(a.shape)
-    plan0 = _planner.plan(config, shape, a.dtype, device=a.device)
+    plan0 = _planner.plan(config, shape, a.dtype, device=a.device,
+                          mesh=mesh)
     ladder = escalation_ladder(plan0)
     if max_rungs is not None:
         ladder = ladder[:max_rungs]
     trail: List[RungAttempt] = []
     for i, (cfg, reason) in enumerate(ladder):
         try:
-            p = _planner.plan(cfg, shape, a.dtype, device=a.device)
+            p = _planner.plan(cfg, shape, a.dtype, device=a.device,
+                              mesh=mesh)
         except (ValueError, TypeError) as e:
             trail.append(RungAttempt(rung=i, reason=reason, config=cfg,
                                      outcome="plan-error", error=str(e)))

@@ -1,8 +1,7 @@
 """SvdConfig: the frozen, hashable description of one solver configuration.
 
 Port of ``repro/solver/config.py`` with the same fields, defaults and
-validation.  A value that only a not-yet-ported slice gives meaning to
-raises ``NotImplementedError`` naming what is missing: ``mode="grouped"``.
+validation.
 """
 
 from __future__ import annotations
@@ -28,10 +27,11 @@ class SvdConfig:
                  + per-spec ``flops_fn`` cost model pick the cheapest).
     eig_method   registry eigensolver for the H stage of Algorithm 2.
     mode         "static" (precomputed schedule), "dynamic" (run-time
-                 coefficients and a residual stop), or "auto": dynamic
-                 when ``l0_policy`` is "runtime", else static; with an
-                 explicit method, "auto" follows that backend's nature.
-                 "grouped" is not yet ported.
+                 coefficients and a residual stop), "grouped" (Algorithm
+                 3 over a ``zolo_group_mesh``), or "auto": grouped when
+                 the plan has a mesh, else dynamic when ``l0_policy`` is
+                 "runtime", else static; with an explicit method, "auto"
+                 follows that backend's nature.
     r            Zolotarev order; None picks it from the conditioning per
                  paper Table 1 (``choose_r``).
     l0           lower bound on sigma_min of the (pre-scaled) input.
@@ -85,10 +85,6 @@ class SvdConfig:
         if self.l0_policy == "runtime" and self.l0 is not None:
             raise ValueError("l0_policy='runtime' estimates the bound "
                              "in-graph; leave l0=None (or use 'given')")
-        if self.mode == "grouped":
-            raise NotImplementedError(
-                "mode='grouped' is not yet ported to repro_torch (the "
-                "dense single-device slices only)")
         if self.compute_dtype is not None and \
                 self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype={self.compute_dtype!r} not in "

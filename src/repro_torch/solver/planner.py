@@ -1,6 +1,6 @@
-"""plan/execute engine: ``plan(SvdConfig, shape, dtype, device) -> SvdPlan``.
+"""plan/execute engine: ``plan(SvdConfig, shape, dtype, device, mesh)``.
 
-Port of the dense single-device part of ``repro/solver/planner.py``.
+Port of ``repro/solver/planner.py``.
 ``plan`` resolves the method through the registry's capability flags and
 ``flops_fn`` cost models, precomputes the coefficient schedule through
 the spec's ``plan_fn`` and returns a cached :class:`SvdPlan` whose
@@ -13,19 +13,23 @@ schedule are built once per (config, shape, dtype, device) — and its
 counters: ``cache_stats()`` reports hits, misses and evictions of the
 LRU (128 entries; pinned plans are exempt).
 
-Modes "static" and "dynamic" resolve as in the reference (the mode and
-capability rules of ``repro/solver/planner.py``, without a mesh);
-dynamic backends scale themselves, so the plan's prescale is skipped for
-them.  ``compute_dtype`` factorizes in another dtype than the input's (a
-bf16 compute plan over f32 input): the canonical input is cast before the
+Modes "static", "dynamic" and "grouped" resolve as in the reference (the
+mode, r/sep and capability rules of ``repro/solver/planner.py``); a
+``mesh=`` (:func:`repro_torch.dist.zolo_group_mesh`) implies grouped
+mode, its "zolo" size is the plan's r, and a grouped plan runs on every
+rank of the mesh, each calling it with the full input: the polar stage
+is Algorithm 3 over the ranks, ``form_h`` and the eigensolve run
+replicated, and every rank returns the same factors.  Dynamic backends
+scale themselves, so the plan's prescale is skipped for them.
+``compute_dtype`` factorizes in another dtype than the input's (a bf16
+compute plan over f32 input): the canonical input is cast before the
 prescale, the results come back in the plan dtype, and the method is
 priced and envelope-capped in the compute dtype.  Plans run on the CUDA
 card unless ``device="cpu"`` is passed; the one-call wrappers
 (``polar_decompose``/``polar_svd``) plan on their input's device through
 :func:`plan_for_call`.  ``svd_verified``/``svd_batched_verified``
 append the solve's health (:mod:`repro_torch.resilience.health`).  Not
-yet ported: ``audit()`` and the grouped mode (each raises
-``NotImplementedError``).
+yet ported: ``audit()`` (raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ def cache_stats() -> dict:
 
 
 def _plan_key(p: "SvdPlan") -> tuple:
-    return (p.config, p.shape, p.dtype, p.device)
+    return (p.config, p.shape, p.dtype, p.device, p.mesh)
 
 
 def pin(p: "SvdPlan") -> None:
@@ -121,6 +125,9 @@ class PlanResolution:
     qr_mode: Optional[str]
     qr_iters: Optional[int]
     nb: int
+    # grouped (Alg. 3) mesh factorization ranks = r * sep: the intra-group
+    # distribution degree (1 for a plan without a mesh)
+    sep: int = 1
     # the config's compute_dtype as a torch.dtype (None: compute in the
     # plan dtype).  plan_fns that gate on precision (the kernels' envelope
     # check) key on this, not ``dtype``: it is what the kernels see.
@@ -147,25 +154,34 @@ _KNOB_CONSUMED_AS = {
 def _capability_ok(spec, mode: str, runtime_l0: bool = False) -> bool:
     # auto never picks reference oracles or comparison baselines — they
     # stay reachable by explicit method= only
-    if spec.is_oracle or spec.baseline or spec.requires_mesh:
+    if spec.is_oracle or spec.baseline:
         return False
     if runtime_l0 and not spec.dynamic:
-        # the run-time bound needs a run-time-conditioning backend
+        # the run-time bound needs a run-time-conditioning backend, in
+        # every mode
+        return False
+    if mode == "grouped":
+        return spec.supports_grouped
+    if spec.requires_mesh:
         return False
     return spec.dynamic if mode == "dynamic" else not spec.dynamic
 
 
-def _dynamic_methods() -> list:
-    """Registered dynamic backends that run without a mesh."""
-    return [n for n in _registry.list_polar()
-            if _registry.get_polar(n).dynamic
-            and not _registry.get_polar(n).requires_mesh]
+def _dynamic_methods(mesh_bound: bool = False) -> list:
+    """Registered dynamic backends: the grouped-capable ones for a plan
+    with a mesh, the ones that run without a mesh otherwise."""
+    names = [n for n in _registry.list_polar()
+             if _registry.get_polar(n).dynamic]
+    if mesh_bound:
+        return [n for n in names if _registry.get_polar(n).supports_grouped]
+    return [n for n in names if not _registry.get_polar(n).requires_mesh]
 
 
 def _select_method(mode, m, n, r_hint, kappa, dtype, device,
-                   runtime_l0=False):
+                   runtime_l0=False, sep=1):
     """method="auto": capability filter, then cheapest by ``flops_fn``
-    (ties broken by name)."""
+    (ties broken by name).  A grouped plan scores the per-group critical
+    path: the model's total over r, each group's work split over sep."""
     cands = [_registry.get_polar(name) for name in _registry.list_polar()]
     cands = [s for s in cands if _capability_ok(s, mode, runtime_l0)]
     if not cands:
@@ -173,22 +189,41 @@ def _select_method(mode, m, n, r_hint, kappa, dtype, device,
                          f"mode={mode!r}" +
                          (" with l0_policy='runtime'" if runtime_l0
                           else ""))
+    grouped = mode == "grouped"
 
     def score(spec):
         if spec.flops_fn is None:
             return (1, 0.0, spec.name)
-        return (0, float(spec.flops_fn(m, n, r=r_hint, kappa=kappa,
-                                       dtype=dtype, device=device)),
-                spec.name)
+        flops = float(spec.flops_fn(m, n, r=r_hint, kappa=kappa,
+                                    grouped=grouped, dtype=dtype, sep=sep,
+                                    device=device))
+        if grouped:
+            flops /= max(r_hint, 1)
+        return (0, flops, spec.name)
 
     return min(cands, key=score)
 
 
-def _validate_capability(spec, mode: str, config: SvdConfig) -> None:
+def _validate_capability(spec, mode: str, config: SvdConfig,
+                         mesh_bound: bool = False) -> None:
+    if mode == "grouped":
+        if not spec.supports_grouped:
+            grouped = [n for n in _registry.list_polar()
+                       if _registry.get_polar(n).supports_grouped]
+            raise ValueError(
+                f"polar method {spec.name!r} does not support grouped "
+                f"(mesh=) execution; grouped-capable methods: {grouped}")
+        if config.l0_policy == "runtime" and not spec.dynamic:
+            raise ValueError(
+                f"l0_policy='runtime' estimates the bound on the device, "
+                f"which needs a run-time-conditioning backend; "
+                f"{spec.name!r} binds a precomputed schedule "
+                f"(grouped-capable dynamic methods: "
+                f"{_dynamic_methods(mesh_bound=True)})")
+        return
     if spec.requires_mesh:
-        raise NotImplementedError(
-            f"polar method {spec.name!r} runs grouped only, and the "
-            f"grouped mode is not yet ported to repro_torch")
+        raise ValueError(f"polar method {spec.name!r} runs grouped only; "
+                         f"pass mesh=zolo_group_mesh(r)")
     if mode == "dynamic" and not spec.dynamic and not spec.is_oracle:
         raise ValueError(
             f"polar method {spec.name!r} has a precomputed schedule; "
@@ -206,19 +241,26 @@ def _validate_capability(spec, mode: str, config: SvdConfig) -> None:
             f"(registered dynamic methods: {_dynamic_methods()})")
 
 
-def _resolve(config: SvdConfig, shape, dtype, device):
+def _resolve(config: SvdConfig, shape, dtype, device, mesh=None):
     m, n = shape
     explicit = (None if config.method == "auto"
                 else _registry.get_polar(config.method))
     eig_spec = _registry.get_eig(config.eig_method)  # fail fast on typos
     mode = config.mode
     if mode == "auto":
-        if explicit is not None:
+        if mesh is not None:
+            mode = "grouped"
+        elif explicit is not None:
             mode = "dynamic" if explicit.dynamic else "static"
         elif config.l0_policy == "runtime":
             mode = "dynamic"
         else:
             mode = "static"
+    if mode == "grouped" and mesh is None:
+        raise ValueError("mode='grouped' needs mesh=zolo_group_mesh(r)")
+    if mode != "grouped" and mesh is not None:
+        raise ValueError(f"mesh= implies grouped execution but "
+                         f"mode={mode!r}; use mode='grouped' or 'auto'")
 
     l0 = config.l0
     if l0 is None and config.l0_policy == "estimate_at_plan":
@@ -231,8 +273,25 @@ def _resolve(config: SvdConfig, shape, dtype, device):
         kappa = 1.0 / float(l0)
     kappa_eff = kappa if kappa is not None else 1e6  # scoring default
 
+    # r from paper Table 1 (choose_r), or the mesh's (r, sep) grid
     r = config.r
-    if r is None and kappa is not None:
+    sep = 1
+    if mode == "grouped":
+        sep = int(mesh.sep)
+        if r is None:
+            r = int(mesh.r)
+        elif r != mesh.r:
+            raise ValueError(f"config.r={r} but the mesh 'zolo' axis has "
+                             f"size {mesh.r}")
+        if sep > 1 and config.qr_mode == "householder" and \
+                (config.qr_iters is None or config.qr_iters > 0):
+            # fail at plan time: the structured Householder first
+            # iteration needs the full iterate on every rank
+            raise ValueError(
+                f"qr_mode='householder' is not row-distributable over "
+                f"the sep={sep} intra-group axis; use a sep=1 mesh "
+                f"(r == ranks) or qr_mode='cholqr2'")
+    elif r is None and kappa is not None:
         r = _coeffs.choose_r(kappa_eff)
 
     # a bf16 compute plan over f32 inputs is priced (and envelope-capped)
@@ -245,15 +304,16 @@ def _resolve(config: SvdConfig, shape, dtype, device):
     else:
         spec = _select_method(mode, m, n, r or _coeffs.choose_r(kappa_eff),
                               kappa_eff, score_dtype, device,
-                              runtime_l0=(config.l0_policy == "runtime"))
-    _validate_capability(spec, mode, config)
+                              runtime_l0=(config.l0_policy == "runtime"),
+                              sep=sep)
+    _validate_capability(spec, mode, config, mesh_bound=mesh is not None)
 
     res = PlanResolution(method=spec.name, mode=mode,
                          eig_method=eig_spec.name, m=m, n=n, dtype=dtype,
                          device=device, r=r, l0=l0, kappa=kappa,
                          max_iters=config.max_iters,
                          qr_mode=config.qr_mode, qr_iters=config.qr_iters,
-                         nb=config.nb, compute_dtype=compute_dtype)
+                         nb=config.nb, sep=sep, compute_dtype=compute_dtype)
 
     # extras pass through verbatim; config knobs flow through plan_fn,
     # and an explicitly-set knob it does not consume is an error
@@ -312,6 +372,7 @@ class SvdPlan:
     _backend_kwargs: Dict[str, Any]
     _eig_kwargs: Dict[str, Any]
     start_vector: Optional[torch.Tensor] = None
+    mesh: Any = None
 
     # --- introspection ------------------------------------------------
 
@@ -326,6 +387,12 @@ class SvdPlan:
     @property
     def r(self) -> Optional[int]:
         return self.resolution.r
+
+    @property
+    def sep(self) -> int:
+        """Intra-group distribution degree of the grouped mesh (1 for a
+        plan without one): ranks = plan.r * plan.sep."""
+        return self.resolution.sep
 
     @property
     def l0(self) -> Optional[float]:
@@ -348,16 +415,21 @@ class SvdPlan:
 
     def flops_estimate(self) -> Optional[float]:
         """Flop estimate from the spec's ``flops_fn``, on the basis
-        ``method="auto"`` scores with (the compute dtype); None when the
-        backend registers no cost model."""
+        ``method="auto"`` scores with (the compute dtype): total flops,
+        or for a grouped plan the per-rank critical path (the total over
+        r, each group's work split over sep).  None when the backend
+        registers no cost model."""
         if self._spec.flops_fn is None:
             return None
         res = self.resolution
         kappa = res.kappa if res.kappa is not None else 1e6
         r = res.r if res.r is not None else _coeffs.choose_r(kappa)
-        return float(self._spec.flops_fn(res.m, res.n, r=r, kappa=kappa,
-                                         dtype=res.score_dtype,
-                                         device=res.device))
+        grouped = self.mode == "grouped"
+        flops = float(self._spec.flops_fn(res.m, res.n, r=r, kappa=kappa,
+                                          grouped=grouped,
+                                          dtype=res.score_dtype,
+                                          sep=res.sep, device=res.device))
+        return flops / max(r, 1) if grouped else flops
 
     def audit(self, *, raise_on_fail: bool = True):
         raise NotImplementedError("SvdPlan.audit() is not yet ported to "
@@ -366,8 +438,9 @@ class SvdPlan:
     def __repr__(self):
         compute = "" if self.resolution.compute_dtype is None else \
             f"compute_dtype={_registry.dtype_name(self.compute_dtype)}, "
+        sep = f"sep={self.sep}, " if self.mode == "grouped" else ""
         return (f"SvdPlan(method={self.method!r}, mode={self.mode!r}, "
-                f"r={self.r}, l0={self.l0}, shape={self.shape}, "
+                f"r={self.r}, {sep}l0={self.l0}, shape={self.shape}, "
                 f"dtype={_registry.dtype_name(self.dtype)}, {compute}"
                 f"device={self.device}, eig={self.eig_method!r})")
 
@@ -414,7 +487,10 @@ class SvdPlan:
             # precomputed-schedule backends assume sigma_max <= 1; dynamic
             # backends estimate their own alpha on the device
             a_work, alpha = self._prescale(a_work)
-        q, h, info = self._spec.fn(a_work, **kw)
+        if self.mode == "grouped":
+            q, h, info = self._spec.grouped_fn(a_work, mesh=self.mesh, **kw)
+        else:
+            q, h, info = self._spec.fn(a_work, **kw)
         return q, h, info, transposed, alpha, out_dtype
 
     def _polar_impl(self, a, want_h=_UNSET, extra=None):
@@ -493,6 +569,11 @@ class SvdPlan:
                              f"tensor on {a.device}")
 
     def _batched(self, impl, a):
+        if self.mode == "grouped":
+            raise ValueError(
+                "grouped (Algorithm 3) plans lay one matrix out over the "
+                "('zolo', 'sep') ranks; batching is not supported — build "
+                "a static/dynamic plan for batched inputs")
         lead = a.shape[:-2]
         flat = a.reshape((-1,) + self.shape)
         return _stack_tree([impl(flat[i]) for i in range(flat.shape[0])],
@@ -550,12 +631,16 @@ class SvdPlan:
                              a)
 
 
-def plan(config: SvdConfig, shape, dtype, device=None) -> SvdPlan:
-    """Resolve ``config`` for (shape, dtype, device) into a cached plan.
+def plan(config: SvdConfig, shape, dtype, device=None,
+         mesh=None) -> SvdPlan:
+    """Resolve ``config`` for (shape, dtype, device[, mesh]) into a cached
+    plan.
 
-    ``device=None`` is the CUDA card (raises when there is none); pass
-    ``device="cpu"`` to run on the CPU.  Identical (config, shape, dtype,
-    device) return the same plan object."""
+    ``device=None`` is the mesh's device, or without a mesh the CUDA card
+    (raises when there is none); pass ``device="cpu"`` to run on the CPU.
+    ``mesh`` (:func:`repro_torch.dist.zolo_group_mesh`) makes a grouped
+    plan.  Identical (config, shape, dtype, device, mesh) return the same
+    plan object."""
     if not isinstance(config, SvdConfig):
         raise TypeError(f"plan() takes an SvdConfig, got {type(config)}")
     if not isinstance(dtype, torch.dtype):
@@ -565,8 +650,13 @@ def plan(config: SvdConfig, shape, dtype, device=None) -> SvdPlan:
         raise ValueError(f"plan() takes the 2-D problem shape (m, n), "
                          f"got {shape}; batched inputs go through "
                          f"svd_batched/polar_batched on a 2-D plan")
+    if mesh is not None and device is None:
+        device = mesh.device
     dev = resolve_device(device)
-    key = (config, shape, dtype, dev)
+    if mesh is not None and torch.device(mesh.device) != dev:
+        raise ValueError(f"plan device {dev} is not the mesh's device "
+                         f"{mesh.device}")
+    key = (config, shape, dtype, dev, mesh)
     cached = _PLANS.get(key)
     if cached is not None and cached._is_current():
         _STATS["plan_hits"] += 1
@@ -574,18 +664,19 @@ def plan(config: SvdConfig, shape, dtype, device=None) -> SvdPlan:
         return cached
     _STATS["plan_misses"] += 1
     spec, eig_spec, res, backend_kwargs, eig_kwargs = _resolve(
-        config, shape, dtype, dev)
+        config, shape, dtype, dev, mesh)
     built = SvdPlan(config=config, shape=shape, dtype=dtype, device=dev,
                     resolution=res, _spec=spec, _eig_spec=eig_spec,
-                    _backend_kwargs=backend_kwargs, _eig_kwargs=eig_kwargs)
+                    _backend_kwargs=backend_kwargs, _eig_kwargs=eig_kwargs,
+                    mesh=mesh)
     _PLANS[key] = built
     _PLANS.move_to_end(key)
     _evict()
     return built
 
 
-def flops_estimate(config: SvdConfig, shape, dtype,
-                   device=None) -> Optional[float]:
+def flops_estimate(config: SvdConfig, shape, dtype, device=None,
+                   mesh=None) -> Optional[float]:
     """Cost-model score of ``config`` at (shape, dtype, device) without
     executing.
 
@@ -596,7 +687,8 @@ def flops_estimate(config: SvdConfig, shape, dtype,
     and the solver's own backend selection share one cost model.  None
     when the resolved backend registers no cost model.
     """
-    return plan(config, shape, dtype, device=device).flops_estimate()
+    return plan(config, shape, dtype, device=device,
+                mesh=mesh).flops_estimate()
 
 
 _CONFIG_CALL_FIELDS = (("r", int), ("l0", float), ("max_iters", int),
@@ -604,7 +696,7 @@ _CONFIG_CALL_FIELDS = (("r", int), ("l0", float), ("max_iters", int),
 
 
 def plan_for_call(shape, dtype, *, method: str, eig_method: str = "eigh",
-                  nb: int = 32, device=None, kw=None):
+                  nb: int = 32, device=None, mesh=None, kw=None):
     """The bridge for :func:`repro_torch.core.svd.polar_decompose` and
     ``polar_svd``: a call's keyword arguments onto (cached plan, runtime
     kwargs).
@@ -636,4 +728,4 @@ def plan_for_call(shape, dtype, *, method: str, eig_method: str = "eigh",
     cfg = SvdConfig(method=method, eig_method=eig_method, nb=nb,
                     scale="none", extra=tuple(sorted(static.items())),
                     **cfg_kw)
-    return plan(cfg, shape, dtype, device=device), runtime
+    return plan(cfg, shape, dtype, device=device, mesh=mesh), runtime

@@ -34,7 +34,7 @@ def _imports(path):
 
 def test_no_jax_or_reference_imports():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 37
+    assert len(files) >= 40
     names = {p.relative_to(PKG).as_posix() for p in files}
     assert {"kernels/matmul.py", "kernels/flash_attention.py",
             "core/elliptic.py", "core/structured_qr.py", "core/qdwh.py",
@@ -42,7 +42,8 @@ def test_no_jax_or_reference_imports():
             "resilience/errors.py", "resilience/health.py",
             "resilience/escalate.py", "resilience/faultinject.py",
             "spectral/sketch.py", "spectral/dnc.py", "spectral/topk.py",
-            "optim/compression.py"} <= names
+            "optim/compression.py", "dist/__init__.py", "dist/grouped.py",
+            "dist/grouped_ops.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
@@ -67,7 +68,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.structured_qr, repro_torch.core.newton\n"
             "from repro_torch import polar_svd, polar_decompose\n"
             "import repro_torch.resilience, repro_torch.spectral\n"
-            "import repro_torch.optim\n"
+            "import repro_torch.optim, repro_torch.dist\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     assert _run(code, 0) == "[]"

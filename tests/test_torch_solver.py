@@ -162,12 +162,11 @@ def test_auto_and_cuda_pricing_on_cpu():
 
 
 def test_not_yet_ported_values_raise():
-    for kw in ({"mode": "grouped"},):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            S.SvdConfig(**kw)
-    # the dynamic slice is ported: these configure, they do not raise
+    # the dynamic and grouped slices are ported: these configure, they do
+    # not raise (a grouped plan needs a mesh: tests/test_torch_grouped.py)
     assert S.SvdConfig(mode="dynamic", l0_policy="runtime").mode == \
         "dynamic"
+    assert S.SvdConfig(mode="grouped").mode == "grouped"
     with pytest.raises(ValueError, match="mode="):
         S.SvdConfig(mode="bogus")
     p = S.plan(S.SvdConfig(method="zolo_static", l0=0.1), (8, 8),
@@ -216,7 +215,9 @@ def _reference_single_device(names, get):
 def test_registered_names_equal_the_reference_single_device_ones():
     from repro.core import registry as jregistry
 
-    assert registry.list_polar() == _reference_single_device(
+    single = [n for n in registry.list_polar()
+              if not registry.get_polar(n).requires_mesh]
+    assert single == _reference_single_device(
         jregistry.list_polar(), jregistry.get_polar)
     assert registry.list_eig() == jregistry.list_eig() == ["eigh",
                                                            "jacobi"]
