@@ -166,7 +166,30 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     on rank 0 the phase-5 accuracy limits, (a)'s
     s against phase 5's, and (a)'s polar/eigh split.  Gloo stages every
     collective through host memory: these times are one card shared by
-    four processes, not the paper's multi-node scaling.
+    four processes, not the paper's multi-node scaling.  After (a) every
+    rank audits (a)'s plan together (``plan.audit(a)``: it runs the
+    plan's collectives); each report must be ok with the executed
+    budget, 0 "sep" and I "zolo" all-reduces.
+18. the SVD service (``repro_torch.serve``) on ``zolo_cuda``, f32,
+    ``verify=True``, ``audit_plans=True``: (a) an open-loop stream
+    through ``launch.svd_serve.run_workload`` (SERVE_REQUESTS at
+    SERVE_RATE/s over SERVE_SHAPES, kappa 1e3, mode "standard", batch
+    4): every future resolved within the phase-5 limits against its
+    exact spectrum, 0 plan constructions and hit rate 1.0 after warmup,
+    one passed audit per bucket with 0 host syncs, each batch's K1/K2
+    equal to slots x the bucket plan's per-solve counts; solves/s,
+    p50/p99, pad waste, slot fill, peak memory; (b) the phase-5 matrix
+    through a service on a 12,000 rung (batch 1): its s against phase
+    5's, its wall beside phase 5's; (c) one ``topk:128`` request at
+    4,096^2 against the exact leading 128 values; (d) a NaN-injected
+    request (rung 0 fails, rung 1 resolves: 1 retry, 0 quarantined) and
+    a deadline expired by a skewed clock; (e) ``SvdPlan.audit(a)`` of
+    the phase-5 plan (ok, 0 host syncs, K1 10 / K2 2) and of the
+    dynamic default (its host syncs reported).  Each audit prints the
+    synchronising calls CUDA's sync debug mode saw, by line.
+
+Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
+paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
 
 The line before the last names the card and its power limit; the one
 before it is a JSON object with one record per kernel and route
@@ -184,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -223,6 +247,17 @@ PINNED_L = 2.59e-6
 GROUPED_DEADLINE = 480
 CPSUM_N, CPSUM_RANK = 4096, 64
 CPSUM_TOL = 1e-5
+# phase 18: the SVD service on zolo_cuda, f32: (a) an open-loop stream of
+# SERVE_REQUESTS at SERVE_RATE/s over SERVE_SHAPES (buckets 4,163^2,
+# 4,163 x 2,775 and 1,850^2 on the default ladder), (b) the phase-5
+# matrix on a SERVE_FULL_BASE rung (one zero row and column), (c) the
+# top-k lane at SERVE_TOPK_N, (d) a NaN-injected request at SERVE_FAULT_N
+SERVE_SHAPES = ((4096, 3072), (3000, 2000), (2000, 3000), (1536, 1536))
+SERVE_REQUESTS, SERVE_RATE = 24, 4.0
+SERVE_KAPPA, SERVE_BATCH = 1e3, 4
+SERVE_FULL_BASE = 12_000
+SERVE_TOPK, SERVE_TOPK_N = 128, 4096
+SERVE_FAULT_N = 1536
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
                    "gram/simt": 10, "gram/wgmma": 0,
@@ -1382,8 +1417,9 @@ def phase_dynamic_default(torch, device, clock, a, s_true, s_qr2):
     say(repr(p))
     check("first_mode" not in p._backend_kwargs,
           f"the default plan binds {p._backend_kwargs}")
+    # one solve: phase 7 warmed the dynamic path at this shape
     (u, s, vh, info), launches, tc, secs, peak = timed_solves(
-        torch, device, clock, p, a, counters)
+        torch, device, clock, p, a, counters, labels=("timed",))
     terms = tc.counts
     rec = info_record(info)
     rec["first_branch"] = first_branch(terms)
@@ -1405,11 +1441,11 @@ def phase_dynamic_default(torch, device, clock, a, s_true, s_qr2):
               f"expected {want}")
         check(launches["gram/simt"] > 0 and launches["grouped_combine"] > 0,
               "the dynamic default launched no K1 or K2")
-    rec.update(warm_s=secs[0], timed_s=secs[1], launches_per_solve=launches,
+    rec.update(timed_s=secs[0], launches_per_solve=launches,
                peak_bytes=peak)
     rec.update(accuracy(torch, a, u, s, vh, s_true))
     rec["s_diff_phase7"] = s_diff(torch, s, s_qr2, s_true)
-    say(f"wall {secs[1]:.3f} s, of which the first iteration's "
+    say(f"wall {secs[0]:.3f} s, of which the first iteration's "
         f"structured Householder term ({R} terms, its K2 combine apart) "
         f"{rec['householder_term_s']:.3f} s; peak memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}"
@@ -1454,20 +1490,21 @@ def phase_householder_static(torch, device, clock, a, s_true):
     p = S.plan(cfg, (n, n), torch.float32, device=device)
     say(repr(p))
     iters = len(p.schedule)
+    # one solve: phase 5 warmed the static path at this shape
     (u, s, vh, _), launches, tc, secs, peak = timed_solves(
-        torch, device, clock, p, a, counters)
+        torch, device, clock, p, a, counters, labels=("timed",))
     terms = tc.counts
     check(terms["term_sum_householder"] == 1 and
           terms["term_sum_cholqr2"] == 0, f"static terms {terms}")
     want = zolo_launch_want(iters, 0)
     say(f"{iters} iterations; K1 {launches['gram']} (simt "
         f"{launches['gram/simt']}), K2 {launches['grouped_combine']}; wall "
-        f"{secs[1]:.3f} s; peak memory "
+        f"{secs[0]:.3f} s; peak memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
     if device.type == "cuda":
         check(launches == want, f"static Householder solve launched "
               f"{launches}, expected {want}")
-    rec = {"iterations": iters, "warm_s": secs[0], "timed_s": secs[1],
+    rec = {"iterations": iters, "timed_s": secs[0],
            "launches_per_solve": launches, "peak_bytes": peak}
     rec.update(accuracy(torch, a, u, s, vh, s_true))
     del u, vh
@@ -1493,14 +1530,14 @@ def phase_qdwh(torch, device, clock, a, s_true, zolo_s):
         p = S.plan(cfg, (n, n), torch.float32, device=device)
         say(repr(p))
         (u, s, vh, info), launches, tc, secs, peak = timed_solves(
-            torch, device, clock, p, a, counters)
+            torch, device, clock, p, a, counters, labels=("timed",))
         terms = tc.counts
         check(all(v == 0 for v in launches.values()),
               f"{name} launched kernels: {launches}")
         rec = info_record(info)
         rec.update(qr_iterations=terms["_qdwh_qr_iter"],
                    chol_iterations=terms["_qdwh_chol_iter"],
-                   warm_s=secs[0], timed_s=secs[1], peak_bytes=peak)
+                   timed_s=secs[0], peak_bytes=peak)
         check(rec["qr_iterations"] + rec["chol_iterations"]
               == rec["iterations"], f"{name}: {terms} vs {rec}")
         if name == "qdwh":
@@ -1508,7 +1545,7 @@ def phase_qdwh(torch, device, clock, a, s_true, zolo_s):
         say(f"{name}: {rec['iterations']} iterations ({rec['qr_iterations']}"
             f" QR, {rec['chol_iterations']} Cholesky), l_init "
             f"{rec['l_init']:.4e}, residual {rec['residual']:.3e}, "
-            f"converged {rec['converged']}; wall {secs[1]:.3f} s against "
+            f"converged {rec['converged']}; wall {secs[0]:.3f} s against "
             f"Zolo's {zolo_s[name]:.3f} s (same matrix, "
             f"{'phase 5' if name == 'qdwh_static' else 'phase 7'}); peak "
             f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
@@ -2518,6 +2555,22 @@ def grouped_run(torch, rank, device, n, cpsum, profile):
         rec["s"] = fac[1].double().cpu().tolist()
     del fac
     rec["stages"] = grouped_stages(torch, clock, p, a, rank)
+    # the plan audit of 17a's plan: every rank together (it runs the
+    # plan's collectives); the parent checks each rank's report
+    zero_counts(counters)
+    clock.sync()
+    t0 = time.perf_counter()
+    rep = p.audit(a, raise_on_fail=False)
+    clock.sync()
+    rec["audit"] = {"ok": rep.ok, "violations": rep.violations,
+                    "seconds": time.perf_counter() - t0,
+                    "psum_counts": rep.psum_counts,
+                    "expect_psums": rep.expect_psums,
+                    "collectives": rep.collectives,
+                    "host_syncs": rep.host_syncs,
+                    "device_syncs": rep.device_syncs,
+                    "device_sync_sites": rep.device_sync_sites,
+                    "launches": read_counts(counters)}
     out["17a"] = rec
 
     # 17b: (2, 2), the same config; then (profile) one solve under the
@@ -2651,6 +2704,16 @@ def check_grouped(device, recs, s_main, n):
             want_xw = [1.0] if zolo_index == 0 else [0.0]
             check(not on_card or rec["xw"] == want_xw, f"{key} rank {r}: "
                   f"K2's xw {rec['xw']}, expected {want_xw}")
+    # 17a's plan audit: the executed budget at sep = 1 (no "sep"
+    # all-reduce is issued on a one-rank group), one "zolo" an iteration
+    iters = r0["17a"]["schedule"]
+    want_c = {"sep": 0, "zolo": iters}
+    for r in ranks:
+        au = recs[r]["17a"]["audit"]
+        got_c = {ax: au["psum_counts"].get(ax, 0) for ax in want_c}
+        check(au["ok"] and au["expect_psums"] == want_c and got_c == want_c,
+              f"17a rank {r}: plan audit {au}, expected all-reduces "
+              f"{want_c}")
     s_a = r0["17a"]["s"]
     s_max = s_a[0]
     s_vs_main = max(abs(x - y) for x, y in zip(s_a, s_main)) / s_max
@@ -2836,6 +2899,13 @@ def phase_grouped(torch, device, n, s_main, cpsum, profile):
         f"{recs[0]['17f']['iterations']}, first branch "
         f"{recs[0]['17f']['first_branch']}")
     say(f"17e: {recs[0]['17e']}")
+    au = recs[0]["17a"]["audit"]
+    say(f"17a plan audit (rank 0): ok {au['ok']}, {au['seconds']:.3f} s, "
+        f"all-reduces {au['psum_counts']} (budget {au['expect_psums']}), "
+        f"collectives {au['collectives']}, host syncs {au['host_syncs']}, "
+        f"device syncs {au['device_syncs']} {au['device_sync_sites']}, K1 "
+        f"{au['launches']['gram']} "
+        f"K2 {au['launches']['grouped_combine']}")
     check_grouped(device, recs, s_main, n)
     say(f"phase 17: {secs:.1f} s, broadcast {recs[0]['broadcast_s']:.3f} s")
     for r in recs.values():
@@ -2843,6 +2913,375 @@ def phase_grouped(torch, device, n, s_main, cpsum, profile):
     return {"seconds": secs, "world": GROUPED_WORLD, "ranks": recs}
 
 
+
+# --- phase 18: the SVD service and the plan audit ----------------------------
+
+
+class AuditRecorder:
+    """Keeps every plan-audit report made while entered, with its
+    synchronised wall time (``repro_torch.analysis.plan_audit.audit_plan``
+    is wrapped, and restored on exit): the service audits its bucket
+    plans at warmup and keeps only the counters."""
+
+    def __init__(self, clock):
+        self.clock = clock
+
+    def __enter__(self):
+        from repro_torch.analysis import plan_audit
+
+        self.mod, self.real, self.reports = plan_audit, \
+            plan_audit.audit_plan, []
+
+        def recorded(plan, a=None, **kw):
+            self.clock.sync()
+            t0 = time.perf_counter()
+            rep = self.real(plan, a, **kw)
+            self.clock.sync()
+            self.reports.append((rep, time.perf_counter() - t0))
+            return rep
+
+        plan_audit.audit_plan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.audit_plan = self.real
+        return False
+
+
+class BatchProbe:
+    """Reads the kernel launches of every batch a service runs
+    (``SvdService._run_batch`` of ``svc`` wrapped on the instance): one
+    record per batch with its bucket, rung, filled slots and launches."""
+
+    def __init__(self, svc, counters):
+        self.svc, self.counters, self.batches = svc, counters, []
+        real = svc._run_batch
+
+        def probed(key, rung, batch, k):
+            before = read_counts(counters)
+            out = real(key, rung, batch, k)
+            after = read_counts(counters)
+            self.batches.append({
+                "bucket": tuple(key), "rung": rung, "method":
+                out[2].method if hasattr(out[2], "method") else
+                out[2].strategy,
+                "launches": {c: after[c] - before[c] for c in after}})
+            return out
+
+        svc._run_batch = probed
+
+
+def audit_record(rep, secs):
+    """The printed and kept fields of one plan-audit report."""
+    rec = {"entry": rep.entry, "ok": rep.ok, "seconds": secs,
+           "violations": list(rep.violations),
+           "psum_counts": dict(rep.psum_counts),
+           "expect_psums": rep.expect_psums,
+           "host_syncs": rep.host_syncs,
+           "host_sync_ops": dict(rep.host_sync_ops),
+           "device_syncs": rep.device_syncs,
+           "device_sync_sites": dict(rep.device_sync_sites),
+           "wide_compute": rep.wide_compute, "wide_ok": dict(rep.wide_ok),
+           "kernel_launches": {k: v for k, v in rep.kernel_launches.items()
+                               if v}}
+    say(f"audit {rep.entry}: ok {rep.ok}, {secs:.3f} s, host syncs "
+        f"{rep.host_syncs} {rec['host_sync_ops']}, device syncs "
+        f"{rep.device_syncs} {rec['device_sync_sites']}, all-reduces "
+        f"{rec['psum_counts']} (budget "
+        f"{rep.expect_psums}), launches {rec['kernel_launches']}, "
+        f"checks {rep.checks}"
+        + (f", violations {rep.violations}" if rep.violations else ""))
+    return rec
+
+
+def serve_accuracy(torch, a, out, kappa, k=None):
+    """One served request against its synthesized spectrum: max|s -
+    s_true|/s_max (the leading k for a top-k request), and for a full SVD
+    ||A - U S Vh||_F/||A||_F and the orthogonality of U and Vh, in f64."""
+    from repro_torch.core.svd import orthogonality
+
+    u, s, vh = (t.double() for t in out)
+    m, n = a.shape
+    nmin = min(m, n)
+    s_true = torch.logspace(0.0, -math.log10(kappa), nmin,
+                            dtype=torch.float64, device=s.device)
+    if k is not None:
+        s_true = s_true[:k]
+    check(bool(torch.isfinite(u).all() and torch.isfinite(s).all()
+               and torch.isfinite(vh).all()), "a served result not finite")
+    rec = {"s_err": float((s - s_true).abs().amax() / s_true[0])}
+    if k is None:
+        a64 = a.double()
+        rec["residual"] = float(torch.linalg.matrix_norm(
+            a64 - (u * s) @ vh) / torch.linalg.matrix_norm(a64))
+        rec["orth_u"] = float(orthogonality(u))
+        rec["orth_vh"] = float(orthogonality(vh.mT))
+    for name, val in rec.items():
+        check(val <= ACCURACY_TOL, f"served {tuple(a.shape)}: {name} "
+              f"{val:.3e} > {ACCURACY_TOL:g}")
+    return rec
+
+
+def per_solve_launches(plan):
+    """K1/K2 launches of one solve of a static ``zolo_cuda`` bucket plan:
+    CholeskyQR2 first (1 + 2r K1), one K1 per later iteration, one K2 an
+    iteration."""
+    return zolo_launch_want(len(plan.schedule), 1 + 2 * plan.r)
+
+
+def phase_serve(torch, device, clock, a, s_main, main_rec, sizes):
+    """Phase 18: the SVD service on ``zolo_cuda`` (f32, verified, every
+    bucket audited at warmup): (a) an open-loop stream through
+    ``launch.svd_serve.run_workload``, (b) the phase-5 matrix at full
+    width through a service on a 12,000 rung, (c) the top-k lane, (d)
+    retries and deadlines through the service, (e) the plan audit of the
+    phase-5 plan and of the dynamic default."""
+    import repro_torch.serve as SV
+    import repro_torch.solver as S
+    from repro_torch.launch import svd_serve as L
+    from repro_torch.resilience import ServiceFaults
+
+    counters = kernel_modules()
+    on_card = device.type == "cuda"
+    base = dict(method="zolo_cuda", verify=True, audit_plans=True,
+                device=str(device))
+    out = {}
+
+    say(f"== phase 18a: open-loop stream, {sizes['requests']} requests at "
+        f"{sizes['rate']:g}/s over {sizes['shapes']}, kappa "
+        f"{SERVE_KAPPA:g}, batch {SERVE_BATCH}")
+    svc = SV.SvdService(SV.ServiceConfig(batch_size=SERVE_BATCH, **base))
+    probe = BatchProbe(svc, counters)
+    served = []
+    real_submit = svc.submit
+
+    def submit(x, mode="standard", deadline=None):
+        fut = real_submit(x, mode, deadline)
+        served.append((x, fut))
+        return fut
+
+    svc.submit = submit
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with AuditRecorder(clock) as audits:
+        rec, launches = path_run(torch, counters, lambda: L.run_workload(
+            svc, sizes["shapes"], requests=sizes["requests"],
+            rate=sizes["rate"], kappa=SERVE_KAPPA, dtype=torch.float32,
+            seed=0))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
+        else None
+    st = svc.stats()
+    rec["launches"] = launches
+    rec["warm_buckets"] = [tuple(k) for k in st["warm_buckets"]]
+    rec["plan_audits"] = st["plan_audits"]
+    rec["audits"] = [audit_record(r, secs) for r, secs in audits.reports]
+    check(rec["ok"] == sizes["requests"] and
+          all(f.exception() is None for _, f in served),
+          f"18a: {sizes['requests'] - rec['ok']} requests failed")
+    worst = {}
+    for x, fut in served:
+        acc = serve_accuracy(torch, x, fut.result(), SERVE_KAPPA)
+        for name, val in acc.items():
+            worst[name] = max(worst.get(name, 0.0), val)
+    rec["worst"] = worst
+    say(f"18a: {rec['solves_per_s']:.3f} solves/s, p50 "
+        f"{rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} ms, wall "
+        f"{rec['wall_s']:.3f} s, {rec['batches']} batches, pad waste "
+        f"{rec['pad_waste']:.4f}, slot fill {rec['slot_fill']:.4f}, hit "
+        f"rate {rec['plan_cache_hit_rate']}, retraces {rec['retraces']}, "
+        f"peak "
+        + ("not measured" if rec["peak_bytes"] is None
+           else f"{rec['peak_bytes'] / 2**30:.2f} GiB")
+        + f"; worst {worst}")
+    want_buckets = sorted({tuple(svc.policy.key_for(sh, torch.float32,
+                                                    "standard"))
+                           for sh in sizes["shapes"]})
+    check(sorted(rec["warm_buckets"]) == want_buckets,
+          f"18a buckets {rec['warm_buckets']}, expected {want_buckets}")
+    check(rec["retraces"] == 0 and rec["plan_cache_hit_rate"] == 1.0,
+          f"18a steady state: retraces {rec['retraces']}, hit rate "
+          f"{rec['plan_cache_hit_rate']}")
+    nb = len(want_buckets)
+    check(rec["plan_audits"] == {"audited": nb, "passed": nb, "failed": 0},
+          f"18a plan audits {rec['plan_audits']}")
+    check(all(r["ok"] and r["host_syncs"] == 0 for r in rec["audits"]),
+          f"18a audits {rec['audits']}")
+    rec["batch_launches"] = []
+    for b in probe.batches:
+        key = SV.BucketKey(*b["bucket"])
+        plan, _ = svc._bucket_plan(key)
+        per = per_solve_launches(plan)
+        want = {c: SERVE_BATCH * per[c] for c in ("gram", "grouped_combine")}
+        got = {c: b["launches"][c] for c in ("gram", "grouped_combine")}
+        rec["batch_launches"].append({"bucket": b["bucket"], "got": got,
+                                      "want": want})
+        say(f"  batch {b['bucket'][:2]} rung {b['rung']} {b['method']}: "
+            f"K1 {got['gram']} K2 {got['grouped_combine']} (slots "
+            f"{SERVE_BATCH} x per-solve K1 {per['gram']} K2 "
+            f"{per['grouped_combine']})")
+        if on_card:
+            check(got == want, f"18a batch {b['bucket']}: launches {got}, "
+                  f"expected {want}")
+    out["stream"] = rec
+    del served, svc, probe
+
+    n = a.shape[0]
+    say(f"== phase 18b: the phase-5 matrix ({n}, {n}) through a service "
+        f"on the {sizes['full_base']} rung")
+    svc = SV.SvdService(SV.ServiceConfig(batch_size=1,
+                                         base=sizes["full_base"], **base))
+    probe = BatchProbe(svc, counters)
+
+    def full():
+        fut = svc.submit(a)
+        return fut.result()
+
+    clock.sync()
+    t0 = time.perf_counter()
+    (u, s, vh), launches = path_run(torch, counters, full)
+    secs = time.perf_counter() - t0
+    key = probe.batches[0]["bucket"]
+    s_vs_main = float((s.double() - s_main.double()).abs().amax()
+                      / s_main.double()[0])
+    rec = {"bucket": key, "seconds": secs, "launches": launches,
+           "phase5_s": main_rec["timed_s"], "s_vs_phase5": s_vs_main}
+    rec["per_solve"] = per_solve_launches(svc._bucket_plan(
+        SV.BucketKey(*key))[0])
+    say(f"18b: bucket {key[:2]}, {secs:.3f} s (cold: plan, padding and "
+        f"solve) against phase 5's {main_rec['timed_s']:.3f} s; K1 "
+        f"{launches['gram']} K2 {launches['grouped_combine']} (per solve "
+        f"{rec['per_solve']['gram']} / {rec['per_solve']['grouped_combine']}"
+        f"); max|s - s_phase5|/s_max {s_vs_main:.3e}")
+    check(key[:2] == (sizes["full_base"],) * 2, f"18b bucket {key}")
+    check(s_vs_main <= ACCURACY_TOL, f"18b s vs phase 5 {s_vs_main:.3e}")
+    check(u.shape == (n, n) and vh.shape == (n, n), "18b factor shapes")
+    if on_card:
+        check({c: launches[c] for c in ("gram", "grouped_combine")} ==
+              {c: rec["per_solve"][c] for c in ("gram", "grouped_combine")},
+              f"18b launches {launches}")
+    out["full_width"] = rec
+    del u, s, vh, svc, probe
+
+    tk = sizes["topk"]
+    m_k = sizes["topk_n"]
+    say(f"== phase 18c: the topk:{tk} lane, one ({m_k}, {m_k}) request")
+    svc = SV.SvdService(SV.ServiceConfig(batch_size=1, **base))
+    x = L.synth_matrix(m_k, m_k, SERVE_KAPPA, seed=101, dtype=torch.float32,
+                       device=device)
+    with AuditRecorder(clock) as audits:
+        svc.warmup([(m_k, m_k)], modes=(f"topk:{tk}",), dtypes=("float32",))
+
+    def topk():
+        fut = svc.submit(x, mode=f"topk:{tk}")
+        return fut.result()
+
+    clock.sync()
+    t0 = time.perf_counter()
+    res, launches = path_run(torch, counters, topk)
+    secs = time.perf_counter() - t0
+    plan, _ = svc._bucket_plan(svc.policy.key_for((m_k, m_k), torch.float32,
+                                                  f"topk:{tk}"))
+    rec = {"strategy": plan.strategy, "seconds": secs, "launches": launches,
+           "audit": audit_record(*audits.reports[0])}
+    rec.update(serve_accuracy(torch, x, res, SERVE_KAPPA, k=tk))
+    check(tuple(res[0].shape) == (m_k, tk) and tuple(res[2].shape) ==
+          (tk, m_k), "18c factor shapes")
+    say(f"18c: {plan!r}; {secs:.3f} s, K1 {launches['gram']} K2 "
+        f"{launches['grouped_combine']}; top-{tk} s error "
+        f"{rec['s_err']:.3e}")
+    check(rec["audit"]["ok"], f"18c audit {rec['audit']}")
+    out["topk"] = rec
+    del svc, x, res
+
+    fn = sizes["fault_n"]
+    say(f"== phase 18d: a NaN-injected request ({fn}, {fn}) through the "
+        f"service, and a deadline under a skewed clock")
+    svc = SV.SvdService(SV.ServiceConfig(
+        batch_size=1, faults=ServiceFaults(nan_request_seqs=(0,)), **base))
+    probe = BatchProbe(svc, counters)
+    x = L.synth_matrix(fn, fn, SERVE_KAPPA, seed=202, dtype=torch.float32,
+                       device=device)
+
+    def retried():
+        fut = svc.submit(x)
+        return fut.result()
+
+    clock.sync()
+    t0 = time.perf_counter()
+    res, launches = path_run(torch, counters, retried)
+    secs = time.perf_counter() - t0
+    st = svc.stats()
+    rec = {"seconds": secs, "launches": launches,
+           "batches": [{"rung": b["rung"], "method": b["method"],
+                        "launches": {c: b["launches"][c] for c in
+                                     ("gram", "grouped_combine")}}
+                       for b in probe.batches],
+           "retries": st["retries"], "quarantined": st["quarantined"],
+           "health_failures": st["health_failures"]}
+    rec.update(serve_accuracy(torch, x, res, SERVE_KAPPA))
+    for b in rec["batches"]:
+        say(f"  rung {b['rung']} {b['method']}: K1 "
+            f"{b['launches']['gram']} K2 {b['launches']['grouped_combine']}")
+    say(f"18d: resolved in {secs:.3f} s; retries {rec['retries']}, health "
+        f"failures {rec['health_failures']}, quarantined "
+        f"{rec['quarantined']}")
+    check([b["rung"] for b in rec["batches"]] == [0, 1],
+          f"18d rungs {rec['batches']}")
+    check((rec["retries"], rec["quarantined"], rec["health_failures"]) ==
+          (1, 0, 1), f"18d counters {rec}")
+    if on_card:
+        k0 = rec["batches"][0]["launches"]
+        check(rec["batches"][0]["method"] == "zolo_cuda" and
+              k0["gram"] > 0 and k0["grouped_combine"] > 0,
+              f"18d rung 0 {rec['batches'][0]}")
+    del svc, probe, x, res
+
+    fake = {"t": 0.0}
+    svc = SV.SvdService(SV.ServiceConfig(
+        batch_size=4, faults=ServiceFaults(clock_skew=100.0), **base),
+        clock=lambda: fake["t"])
+    fut = svc.submit(torch.zeros((fn, fn), device=device), deadline=50.0)
+    fake["t"] = 60.0
+    svc.poll()
+    rec["deadline"] = {"t_submit": fut.t_submit, "exception":
+                       type(fut.exception()).__name__,
+                       "deadline_expired": svc.stats()["deadline_expired"]}
+    say(f"18d: skewed clock: submitted at {fut.t_submit}, "
+        f"{rec['deadline']['exception']}, deadline_expired "
+        f"{rec['deadline']['deadline_expired']}")
+    check(rec["deadline"]["exception"] == "DeadlineExceeded" and
+          rec["deadline"]["deadline_expired"] == 1, f"18d {rec['deadline']}")
+    out["resilience"] = rec
+    del svc, fut
+
+    say("== phase 18e: SvdPlan.audit() of the phase-5 plan and of the "
+        "dynamic default")
+    cfg = S.SvdConfig(method="zolo_cuda", kappa=KAPPA,
+                      l0_policy="estimate_at_plan", r=R)
+    dd_cfg = S.SvdConfig(method="zolo_cuda_dynamic", mode="dynamic",
+                         l0_policy="runtime", r=R)
+    for label, c in (("static", cfg), ("dynamic_default", dd_cfg)):
+        p = S.plan(c, (n, n), torch.float32, device=device)
+        zero_counts(counters)
+        clock.sync()
+        t0 = time.perf_counter()
+        rep = p.audit(a, raise_on_fail=False)
+        clock.sync()
+        out[f"audit_{label}"] = r = audit_record(
+            rep, time.perf_counter() - t0)
+        r["launches"] = read_counts(counters)
+    st = out["audit_static"]
+    check(st["ok"] and st["host_syncs"] == 0,
+          f"18e phase-5 plan audit {st}")
+    if on_card:
+        check({c: st["kernel_launches"].get(c, 0) for c in
+               ("gram", "grouped_combine")} ==
+              {"gram": EXPECT_LAUNCHES["gram"],
+               "grouped_combine": EXPECT_LAUNCHES["grouped_combine"]},
+              f"18e phase-5 plan audit launches {st['kernel_launches']}")
+    check(out["audit_dynamic_default"]["ok"],
+          f"18e dynamic default audit {out['audit_dynamic_default']}")
+    return out
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2875,12 +3314,19 @@ def main(argv=None) -> int:
         baseline_n, batch_n, topk_k, dnc_n = BASELINE_N, BATCH_N, TOPK_K, \
             DNC_N
         cpsum = (CPSUM_N, CPSUM_RANK)
+        serve = {"shapes": SERVE_SHAPES, "requests": SERVE_REQUESTS,
+                 "rate": SERVE_RATE, "full_base": SERVE_FULL_BASE,
+                 "topk": SERVE_TOPK, "topk_n": SERVE_TOPK_N,
+                 "fault_n": SERVE_FAULT_N}
     else:
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
         mm_aligned, mm_transposed = 168, 64
         baseline_n, batch_n, topk_k, dnc_n = 128, 64, 8, 128
         cpsum = (128, 8)
+        serve = {"shapes": ((96, 64), (90, 60), (60, 90), (48, 48)),
+                 "requests": 8, "rate": 50.0, "full_base": n + 1,
+                 "topk": 8, "topk_n": 96, "fault_n": 48}
     clock = Clock(torch, device)
 
     t_start = time.perf_counter()
@@ -2919,9 +3365,11 @@ def main(argv=None) -> int:
                                            topk_k, dnc_n)
     if args.profile_split:
         record["profile_static"] = phase_profile(torch, device, clock, a)
-    del a
     record["grouped"] = grouped_rec = phase_grouped(
         torch, device, n, s_main.tolist(), cpsum, args.profile_split)
+    record["serve"] = serve_rec = phase_serve(torch, device, clock, a,
+                                              s_main, main_rec, serve)
+    del a
     record["seconds"] = time.perf_counter() - t_start
 
     kernels = []
@@ -2961,7 +3409,16 @@ def main(argv=None) -> int:
                    "grouped_static_2x2": g0["17b"]["launches"],
                    "grouped_dynamic_2x2": g0["17c"]["launches"],
                    "grouped_dynamic_pinned_2x2": g0["17f"]["launches"],
-                   "escalation_grouped_2x2": g0["17d"]["launches"]})
+                   "escalation_grouped_2x2": g0["17d"]["launches"],
+                   "grouped_audit_4x1": g0["17a"]["audit"]["launches"]})
+    # phase 18: the service's paths and the plan audits
+    solves.update({"serve_stream": serve_rec["stream"]["launches"],
+                   "serve_full_width": serve_rec["full_width"]["launches"],
+                   "serve_topk": serve_rec["topk"]["launches"],
+                   "serve_retry": serve_rec["resilience"]["launches"],
+                   "audit_static": serve_rec["audit_static"]["launches"],
+                   "audit_dynamic_default":
+                       serve_rec["audit_dynamic_default"]["launches"]})
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],

@@ -25,6 +25,8 @@ Differences from the reference, each deliberate:
   spectrum at n = 2,048 (``chip_smoke.py`` phase 13, an H100) f32
   rotations left the singular values 1.45e-3 off, beyond the f32
   limit of 1e-4.  For f64 input the arithmetic is the reference's.
+  The plan audit's ``wide_ok("block-jacobi rotations")`` scope marks
+  them (:mod:`repro_torch.analysis.plan_audit`).
 * One sweep cap, :data:`MAX_SWEEPS` = 40, for the eigensolver and for
   :func:`repro_torch.core.svd.jacobi_svd`.  The reference's 12 and 16
   leave the linverse spectrum unconverged at n = 2,048 and return it
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.analysis.plan_audit import wide_ok
 
 # the block-Jacobi sweep cap (module docstring)
 MAX_SWEEPS = 40
@@ -120,17 +124,18 @@ def block_jacobi_eigh(h, nb: int = 32, max_sweeps: int = MAX_SWEEPS,
             sub = torch.take_along_dim(
                 rows, row_ids[:, None, :].expand(-1, 2 * nb, -1), dim=2)
             sub = 0.5 * (sub + sub.mT)
-            _, j = torch.linalg.eigh(sub.to(hi))  # (npairs, 2nb, 2nb)
-            # row phase: rows <- J^T rows
-            h[flat] = (j.mT @ rows.to(hi)).to(dtype).reshape(-1, n)
-            # column phase: cols <- cols J
-            cols = h[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
-            h[:, flat] = (cols.to(hi) @ j).to(dtype).transpose(
-                0, 1).reshape(n, -1)
-            # accumulate eigenvectors: V <- V J
-            vcols = v[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
-            v[:, flat] = (vcols.to(hi) @ j).to(dtype).transpose(
-                0, 1).reshape(n, -1)
+            with wide_ok("block-jacobi rotations"):
+                _, j = torch.linalg.eigh(sub.to(hi))  # (npairs, 2nb, 2nb)
+                # row phase: rows <- J^T rows
+                h[flat] = (j.mT @ rows.to(hi)).to(dtype).reshape(-1, n)
+                # column phase: cols <- cols J
+                cols = h[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
+                h[:, flat] = (cols.to(hi) @ j).to(dtype).transpose(
+                    0, 1).reshape(n, -1)
+                # accumulate eigenvectors: V <- V J
+                vcols = v[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
+                v[:, flat] = (vcols.to(hi) @ j).to(dtype).transpose(
+                    0, 1).reshape(n, -1)
         sweeps += 1
         off = float(_offdiag_norm(h, nb) / torch.clamp(
             torch.sqrt(torch.sum(h * h)), min=tiny))

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.plan_audit import wide_ok
 from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import eig as _eig
 from repro_torch.core import newton as _newton
@@ -400,7 +401,8 @@ def jacobi_svd(a, nb: int = 32, max_sweeps: int = _eig.MAX_SWEEPS,
     the rotations of its small columns lose their orthogonality (on the
     linverse spectrum, kappa 9.06e3, the reference's U misses the f32
     limit of 1e-4 already at n = 128: tests/test_torch_eig.py).  For f64
-    input the arithmetic is the reference's.
+    input the arithmetic is the reference's.  The plan audit's
+    ``wide_ok("jacobi-svd rotations")`` scope marks them.
 
     ``max_sweeps`` defaults to the eigensolver's cap,
     :data:`repro_torch.core.eig.MAX_SWEEPS` (40); the reference's 16
@@ -433,14 +435,16 @@ def jacobi_svd(a, nb: int = 32, max_sweeps: int = _eig.MAX_SWEEPS,
         for col_ids in ids:
             flat = col_ids.reshape(-1)
             blocks = x[:, flat].reshape(m, -1, 2 * nb).transpose(0, 1)
-            bh = blocks.to(hi)
-            _, j = torch.linalg.eigh(bh.mT @ bh)
-            # descending eigenvalue order keeps big columns first
-            j = torch.flip(j, dims=[-1])
-            x[:, flat] = (bh @ j).to(dtype).transpose(0, 1).reshape(m, -1)
-            vblocks = v[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
-            v[:, flat] = (vblocks.to(hi) @ j).to(dtype).transpose(
-                0, 1).reshape(n, -1)
+            with wide_ok("jacobi-svd rotations"):
+                bh = blocks.to(hi)
+                _, j = torch.linalg.eigh(bh.mT @ bh)
+                # descending eigenvalue order keeps big columns first
+                j = torch.flip(j, dims=[-1])
+                x[:, flat] = (bh @ j).to(dtype).transpose(0, 1).reshape(
+                    m, -1)
+                vblocks = v[:, flat].reshape(n, -1, 2 * nb).transpose(0, 1)
+                v[:, flat] = (vblocks.to(hi) @ j).to(dtype).transpose(
+                    0, 1).reshape(n, -1)
         sweeps += 1
         off = float(off_measure(x))
     s = torch.linalg.vector_norm(x, dim=0)

@@ -386,6 +386,15 @@ def zolo_pd(a, r: int = 3, *, alpha=None, l=None, max_iters: int = 8,
     return x, None, info
 
 
+def upload(values, dtype, device) -> torch.Tensor:
+    """A host list as a ``dtype`` tensor on ``device``, without waiting for
+    the device: the copy from pageable host memory is staged by CUDA
+    at once (``non_blocking``), where a blocking copy (what
+    ``torch.tensor(..., device=)`` makes) first synchronises the stream —
+    a static solve would then hold the host until the card caught up."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
 def zolo_pd_static(a, *, l0: Optional[float] = None,
                    r: Optional[int] = None, max_iters: int = 6,
                    want_h: bool = False, qr_mode: str = "cholqr2",
@@ -416,19 +425,19 @@ def zolo_pd_static(a, *, l0: Optional[float] = None,
                          "schedule=")
     cdt = _kref.accum_dtype(a.dtype)
     dev = a.device
-    c_odd = torch.tensor([it.c[0::2] for it in sched], dtype=cdt, device=dev)
-    a_wts = torch.tensor([it.a for it in sched], dtype=cdt, device=dev)
-    mhats = torch.tensor([it.mhat for it in sched], dtype=cdt, device=dev)
+    c_odd = upload([it.c[0::2] for it in sched], cdt, dev)
+    a_wts = upload([it.a for it in sched], cdt, dev)
+    mhats = upload([it.mhat for it in sched], cdt, dev)
     x = run_schedule(a, c_odd, a_wts, mhats, qr_mode=qr_mode,
                      qr_iters=qr_iters, ops=ops, hh_block=hh_block)
     src = a if hermitian_source is None else hermitian_source
     f32 = torch.float32
     info = PolarInfo(
-        iterations=torch.tensor(len(sched), dtype=torch.int32, device=dev),
+        iterations=torch.full((), len(sched), dtype=torch.int32, device=dev),
         residual=torch.zeros((), dtype=a.dtype, device=dev),
-        l_final=torch.tensor(sched[-1].l_after, dtype=f32, device=dev),
+        l_final=torch.full((), sched[-1].l_after, dtype=f32, device=dev),
         converged=torch.ones((), dtype=torch.bool, device=dev),
-        l_init=torch.tensor(sched[0].l_before, dtype=f32, device=dev))
+        l_init=torch.full((), sched[0].l_before, dtype=f32, device=dev))
     if want_h:
         return x, form_h(x, src), info
     return x, None, info

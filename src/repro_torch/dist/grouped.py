@@ -244,10 +244,9 @@ def grouped_zolo_pd_static(a, *, mesh: ZoloGroupMesh,
     dev = a.device
     j = mesh.zolo_index
     # (iters, 1): this group's shift and weight per iteration
-    c_grp = torch.tensor([[it.c[2 * j]] for it in sched], dtype=cdt,
-                         device=dev)
-    a_grp = torch.tensor([[it.a[j]] for it in sched], dtype=cdt, device=dev)
-    mhats = torch.tensor([it.mhat for it in sched], dtype=cdt, device=dev)
+    c_grp = _zolo.upload([[it.c[2 * j]] for it in sched], cdt, dev)
+    a_grp = _zolo.upload([[it.a[j]] for it in sched], cdt, dev)
+    mhats = _zolo.upload([it.mhat for it in sched], cdt, dev)
     x0 = a if alpha is None else a / torch.as_tensor(alpha, dtype=a.dtype,
                                                      device=dev)
     x = _row_block(x0, mesh, m_pad)
@@ -261,11 +260,11 @@ def grouped_zolo_pd_static(a, *, mesh: ZoloGroupMesh,
         return q
     f32 = torch.float32
     return q, PolarInfo(
-        iterations=torch.tensor(len(sched), dtype=torch.int32, device=dev),
+        iterations=torch.full((), len(sched), dtype=torch.int32, device=dev),
         residual=torch.zeros((), dtype=a.dtype, device=dev),
-        l_final=torch.tensor(sched[-1].l_after, dtype=f32, device=dev),
+        l_final=torch.full((), sched[-1].l_after, dtype=f32, device=dev),
         converged=torch.ones((), dtype=torch.bool, device=dev),
-        l_init=torch.tensor(sched[0].l_before, dtype=f32, device=dev))
+        l_init=torch.full((), sched[0].l_before, dtype=f32, device=dev))
 
 
 def grouped_zolo_pd_dynamic(a, *, mesh: ZoloGroupMesh,

@@ -37,7 +37,11 @@ launches = 0
 
 
 def _device_f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
+    # a python number is filled on the device: no host-to-device copy,
+    # whose stream sync would hold the host on every launch
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def grouped_combine_kernel_call(x: torch.Tensor, t: torch.Tensor, a, mhat,

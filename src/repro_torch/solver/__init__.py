@@ -14,11 +14,15 @@ from repro_torch.solver.planner import (
     PlanResolution,
     SvdPlan,
     cache_stats,
+    clear_plan_cache,
     flops_estimate,
     pin,
     plan,
+    plan_cache_stats,
     plan_for_call,
     resolve_device,
+    set_plan_cache_capacity,
+    trace_count,
     unpin,
 )
 
@@ -27,10 +31,14 @@ __all__ = [
     "SvdConfig",
     "SvdPlan",
     "cache_stats",
+    "clear_plan_cache",
     "flops_estimate",
     "pin",
     "plan",
+    "plan_cache_stats",
     "plan_for_call",
     "resolve_device",
+    "set_plan_cache_capacity",
+    "trace_count",
     "unpin",
 ]

@@ -6,12 +6,14 @@ Port of ``repro/solver/planner.py``.
 the spec's ``plan_fn`` and returns a cached :class:`SvdPlan` whose
 ``svd``/``polar``/``svd_batched``/``polar_batched`` run it.
 
-Execution is eager: PyTorch has no trace to cache, so the reference's
-"compile once, zero retraces" contract (``trace_count``) has no
-counterpart.  What carries over is the plan cache — resolution and the
+Execution is eager: PyTorch has no trace to cache, so nothing is ever
+retraced.  What carries over is the plan cache — resolution and the
 schedule are built once per (config, shape, dtype, device) — and its
 counters: ``cache_stats()`` reports hits, misses and evictions of the
-LRU (128 entries; pinned plans are exempt).
+LRU (128 entries by default, :func:`set_plan_cache_capacity`; pinned
+plans are exempt), and :func:`trace_count` counts plan constructions,
+the one thing a repeated solve could still redo; a service's
+zero-retrace contract reads "no plan is built after warmup".
 
 Modes "static", "dynamic" and "grouped" resolve as in the reference (the
 mode, r/sep and capability rules of ``repro/solver/planner.py``); a
@@ -28,8 +30,9 @@ priced and envelope-capped in the compute dtype.  Plans run on the CUDA
 card unless ``device="cpu"`` is passed; the one-call wrappers
 (``polar_decompose``/``polar_svd``) plan on their input's device through
 :func:`plan_for_call`.  ``svd_verified``/``svd_batched_verified``
-append the solve's health (:mod:`repro_torch.resilience.health`).  Not
-yet ported: ``audit()`` (raises ``NotImplementedError``).
+append the solve's health (:mod:`repro_torch.resilience.health`).
+``audit()`` runs the plan under the plan auditor
+(:mod:`repro_torch.analysis.plan_audit`).
 """
 
 from __future__ import annotations
@@ -51,7 +54,22 @@ _UNSET = object()  # want_h not given: the backend's own default
 _PLANS_MAX = 128
 _PLANS: "collections.OrderedDict[tuple, SvdPlan]" = collections.OrderedDict()
 _PINNED: set = set()  # plan keys exempt from LRU eviction
-_STATS = {"plan_hits": 0, "plan_misses": 0, "evictions": 0}
+_STATS = {"traces": 0, "plan_hits": 0, "plan_misses": 0, "evictions": 0}
+
+
+def trace_count() -> int:
+    """Plan constructions so far (monotonic): the cache misses that ran
+    the resolution and built a schedule.
+
+    The reference counts backend traces; execution here is eager and
+    never retraces, so the counter that stands for it is the work a warm
+    solve must not redo — building its plan.  A repeated ``plan(...)``
+    at a fixed (config, shape, dtype, device) does not move it."""
+    return _STATS["traces"]
+
+
+def plan_cache_stats() -> dict:
+    return dict(_STATS, plans=len(_PLANS))
 
 
 def cache_stats() -> dict:
@@ -79,6 +97,19 @@ def unpin(p: "SvdPlan") -> None:
     _PINNED.discard(_plan_key(p))
 
 
+def set_plan_cache_capacity(n: int) -> int:
+    """Set the LRU bound (returns the previous one), evicting now if the
+    cache is over it.  Pinned plans never count toward eviction order
+    but do occupy ``size`` — capacity below the pinned count keeps every
+    pin and nothing else."""
+    global _PLANS_MAX
+    if n < 1:
+        raise ValueError(f"plan cache capacity must be >= 1, got {n}")
+    prev, _PLANS_MAX = _PLANS_MAX, int(n)
+    _evict()
+    return prev
+
+
 def _evict() -> None:
     over = len(_PLANS) - _PLANS_MAX
     for key in list(_PLANS):  # least-recently-used first
@@ -89,6 +120,13 @@ def _evict() -> None:
         del _PLANS[key]
         _STATS["evictions"] += 1
         over -= 1
+
+
+def clear_plan_cache() -> None:
+    """Drop all cached plans, pins included.  Does not reset counters —
+    they are monotonic."""
+    _PLANS.clear()
+    _PINNED.clear()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -431,9 +469,21 @@ class SvdPlan:
                                           sep=res.sep, device=res.device))
         return flops / max(r, 1) if grouped else flops
 
-    def audit(self, *, raise_on_fail: bool = True):
-        raise NotImplementedError("SvdPlan.audit() is not yet ported to "
-                                  "repro_torch")
+    def audit(self, a=None, *, raise_on_fail: bool = True):
+        """Run the plan's full SVD path once on ``a`` (None: a
+        deterministic matrix from a generator seeded with 0 on the plan
+        device, at the plan's shape, dtype and kappa hint) under the plan
+        auditor and check it: the collectives per grouped axis against
+        the (r, sep) budget, no f64 compute in an f32-compute plan, no
+        host syncs on a static path.  Raises
+        :class:`repro_torch.analysis.AuditError` on a violation unless
+        ``raise_on_fail=False``; returns the
+        :class:`~repro_torch.analysis.AuditReport`.  A grouped plan's
+        audit is collective: every rank of its mesh calls it together.
+        See :func:`repro_torch.analysis.plan_audit.audit_plan`."""
+        from repro_torch.analysis import plan_audit as _audit
+
+        return _audit.audit_plan(self, a, raise_on_fail=raise_on_fail)
 
     def __repr__(self):
         compute = "" if self.resolution.compute_dtype is None else \
@@ -665,6 +715,7 @@ def plan(config: SvdConfig, shape, dtype, device=None,
     _STATS["plan_misses"] += 1
     spec, eig_spec, res, backend_kwargs, eig_kwargs = _resolve(
         config, shape, dtype, dev, mesh)
+    _STATS["traces"] += 1
     built = SvdPlan(config=config, shape=shape, dtype=dtype, device=dev,
                     resolution=res, _spec=spec, _eig_spec=eig_spec,
                     _backend_kwargs=backend_kwargs, _eig_kwargs=eig_kwargs,

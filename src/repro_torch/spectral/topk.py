@@ -29,10 +29,11 @@ and its Rayleigh-Ritz panel are cached ``SvdPlan`` objects on the plan's
 device, so a CUDA plan runs them on the Hopper kernels where its inner
 config names a kernel backend.
 
-Differences from the reference: execution is eager, so the reference's
-no-retrace contract (``trace_count``) waits for the serving slice, where
-a recompile counter is defined; ``trace_count`` and ``TopKPlan.audit``
-raise ``NotImplementedError``.  The random draws come from a
+Differences from the reference: execution is eager and never retraces,
+so :func:`trace_count` counts :class:`TopKPlan` constructions, as
+:func:`repro_torch.solver.trace_count` counts ``SvdPlan`` ones; the
+serving zero-retrace contract reads "no plan is built after warmup".
+``TopKPlan.audit`` runs the plan under the plan auditor.  The random draws come from a
 ``torch.Generator`` seeded with ``TopKConfig.seed`` on the plan's device
 (:meth:`TopKPlan.draw`); :func:`repro_torch.interop.with_draws` binds
 given draws (the reference's) to an uncached copy of a plan.
@@ -57,16 +58,14 @@ STRATEGIES = ("auto", "dnc", "sketch", "dense")
 _TOPK_MAX = 128
 _TOPK_PLANS: "collections.OrderedDict[tuple, TopKPlan]" = \
     collections.OrderedDict()
-_STATS = {"plan_hits": 0, "plan_misses": 0}
+_STATS = {"traces": 0, "plan_hits": 0, "plan_misses": 0}
 
 
 def trace_count() -> int:
-    """The reference's count of top-k executable traces.  Execution here
-    is eager; the recompile counter that stands for it comes with the
-    serving slice."""
-    raise NotImplementedError("spectral.trace_count() is not yet ported "
-                              "to repro_torch (the serving slice defines "
-                              "the recompile counter)")
+    """Monotonic count of :class:`TopKPlan` constructions (cache misses
+    that resolved a plan): the top-k no-retrace contract mirrors
+    :func:`repro_torch.solver.trace_count`."""
+    return _STATS["traces"]
 
 
 def topk_cache_stats() -> dict:
@@ -185,9 +184,16 @@ class TopKPlan:
     def flops_estimate(self) -> Optional[float]:
         return self.decision.get(f"{self.strategy}_flops")
 
-    def audit(self, *, raise_on_fail: bool = True):
-        raise NotImplementedError("TopKPlan.audit() is not yet ported to "
-                                  "repro_torch")
+    def audit(self, a=None, *, raise_on_fail: bool = True):
+        """Run the whole top-k path (strategy + inner solver plans) once
+        on ``a`` (None: the deterministic audit matrix at the plan's
+        shape, dtype, device and kappa) under the plan auditor: no
+        collectives, no f64 compute under an f32 plan, no host syncs
+        unless the strategy or an inner plan loops on the host.  See
+        :func:`repro_torch.analysis.plan_audit.audit_plan`."""
+        from repro_torch.analysis import plan_audit as _audit
+
+        return _audit.audit_plan(self, a, raise_on_fail=raise_on_fail)
 
     def draw(self) -> Dict[str, torch.Tensor]:
         """The random draws one solve uses: the bound ``draws``, else a
@@ -454,6 +460,7 @@ def plan_topk(config: TopKConfig, shape, dtype=None,
         return cached
     _STATS["plan_misses"] += 1
     built = _resolve_topk(config, shape, dtype, dev)
+    _STATS["traces"] += 1
     _TOPK_PLANS[key] = built
     while len(_TOPK_PLANS) > _TOPK_MAX:
         _TOPK_PLANS.popitem(last=False)

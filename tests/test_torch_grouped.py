@@ -45,6 +45,8 @@ from conftest import make_matrix  # noqa: E402
 from repro.analysis import jaxpr_audit as JA  # noqa: E402
 from repro.core import svd as jsvd  # noqa: E402
 from repro.dist import grouped as jgrouped  # noqa: E402
+from repro_torch.analysis.plan_audit import \
+    executed_dynamic_psums  # noqa: E402
 from repro_torch.core import coeffs as tcoeffs  # noqa: E402
 from repro_torch.core import qdwh as tqdwh  # noqa: E402
 from repro_torch.core import registry  # noqa: E402
@@ -312,6 +314,19 @@ def run(rank, out_dir, c):
         g_hat, err, q
     dist.all_reduce = real
 
+    # the plan audit on (4, 2): the static plan and the dynamic one, on a
+    for name, cfg in (("audit_static_4x2", S.SvdConfig(
+            method="zolo_grouped", l0=l0)),
+            ("audit_dynamic_4x2", S.SvdConfig(l0_policy="runtime"))):
+        p = S.plan(cfg, tuple(a.shape), a.dtype, mesh=meshes[4])
+        rep = p.audit(a)
+        meta[name] = {"ok": rep.ok, "violations": rep.violations,
+                      "method": p.method, "psums": rep.psum_counts,
+                      "expect": rep.expect_psums,
+                      "collectives": rep.collectives,
+                      "schedule": (None if p.schedule is None
+                                   else len(p.schedule))}
+
     # a bf16 compute plan on (4, 2), with the reference's bf16 start vector
     ab = torch.from_numpy(d["a_bf16"])
     p = S.plan(S.SvdConfig(kappa=c["bf16_kappa"], l0_policy="estimate_at_plan",
@@ -525,16 +540,6 @@ def test_static_all_reduces_follow_the_reference_budget(worlds, mesh):
 # --- dynamic driver ----------------------------------------------------------
 
 
-def _executed_dynamic_psums(first_mode, iters, estimate=True):
-    """The reference's budget (``expected_grouped_psums``) over the
-    branches a run executes: the sigma_min estimate's Gram, the first
-    iteration's term and fused residual, then one Gram and one residual
-    per Cholesky iteration; one "zolo" combine per iteration."""
-    ms = JA.MODE_SEP_PSUMS
-    return {"sep": int(estimate) + ms[first_mode] + 1 + (iters - 1) * 2,
-            "zolo": iters}
-
-
 @pytest.mark.parametrize("mesh", DYN_MESHES, ids=_tag)
 def test_dynamic_q_matches_the_reference(worlds, mesh):
     world, (ref, _), port = worlds
@@ -566,8 +571,32 @@ def test_dynamic_all_reduces_follow_the_reference_budget(worlds, mesh):
     key = f"dynamic_{_tag(mesh)}"
     for _, meta in port_of(worlds):
         iters = meta[key]["iterations"]
-        assert meta["counts"][key] == _executed_dynamic_psums("cholqr2",
+        assert meta["counts"][key] == executed_dynamic_psums("cholqr2",
                                                               iters)
+
+
+def test_plan_audits_hold_the_budget(worlds):
+    """``plan.audit()`` on every rank of the (4, 2) grid: the static
+    plan's all-reduces per axis are the reference's budget
+    (``expected_grouped_psums``), the dynamic plan's those of the
+    branches it ran (``executed_dynamic_psums``: CholeskyQR2 first at
+    kappa = 9.06e3, the solve's iterations); the sep group's one gather
+    is an axis-bound collective."""
+    for _, meta in port_of(worlds):
+        st, dy = meta["audit_static_4x2"], meta["audit_dynamic_4x2"]
+        assert st["method"] == "zolo_grouped"
+        assert dy["method"] == "zolo_grouped_dynamic"
+        sched = tuple(tcoeffs.zolo_schedule_np(L0, 4, max_iters=6))
+        assert st["schedule"] == len(sched)
+        want = JA.expected_grouped_psums(
+            "zolo_grouped", {"schedule": sched, "qr_mode": "cholqr2",
+                             "qr_iters": 1}, sep=2)
+        assert st["ok"] and st["psums"] == st["expect"] == want
+        iters = meta["dynamic_4x2"]["iterations"]
+        want = executed_dynamic_psums("cholqr2", iters)
+        assert dy["ok"] and dy["psums"] == dy["expect"] == want
+        for rec in (st, dy):
+            assert rec["collectives"]["sep:allgather_"] == 1
 
 
 @pytest.mark.parametrize("key", ["dynamic_l_2x4", "dynamic_hh_8x1"])
@@ -579,7 +608,7 @@ def test_dynamic_pinned_l_and_householder_match_the_reference(worlds, key):
     meta = port[0][1]
     iters = meta[key]["iterations"]
     if key == "dynamic_l_2x4":  # a pinned bound skips the estimate
-        want = _executed_dynamic_psums("cholqr2", iters, estimate=False)
+        want = executed_dynamic_psums("cholqr2", iters, estimate=False)
     else:  # sep = 1: no "sep" all-reduce at all
         want = {"sep": 0, "zolo": iters}
     assert meta["counts"][key] == want
@@ -603,7 +632,7 @@ def test_extreme_regime_first_iteration(worlds, mesh):
     assert orth <= 2 * orth_ref + 1e-13 and rec < 1e-12, (orth, orth_ref)
     for _, meta in port:
         iters = meta[key]["iterations"]
-        want_c = (_executed_dynamic_psums("cholqr2", iters) if mesh[1] > 1
+        want_c = (executed_dynamic_psums("cholqr2", iters) if mesh[1] > 1
                   else {"sep": 0, "zolo": iters})
         assert meta["counts"][key] == want_c
 

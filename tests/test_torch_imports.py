@@ -43,7 +43,11 @@ def test_no_jax_or_reference_imports():
             "resilience/escalate.py", "resilience/faultinject.py",
             "spectral/sketch.py", "spectral/dnc.py", "spectral/topk.py",
             "optim/compression.py", "dist/__init__.py", "dist/grouped.py",
-            "dist/grouped_ops.py"} <= names
+            "dist/grouped_ops.py", "analysis/__init__.py",
+            "analysis/plan_audit.py", "serve/__init__.py",
+            "serve/bucketing.py", "serve/scheduler.py",
+            "serve/svd_service.py", "launch/__init__.py",
+            "launch/svd_serve.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
@@ -69,6 +73,8 @@ def test_importing_the_port_loads_no_jax():
             "from repro_torch import polar_svd, polar_decompose\n"
             "import repro_torch.resilience, repro_torch.spectral\n"
             "import repro_torch.optim, repro_torch.dist\n"
+            "import repro_torch.analysis, repro_torch.serve\n"
+            "import repro_torch.launch.svd_serve\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     assert _run(code, 0) == "[]"

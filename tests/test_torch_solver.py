@@ -114,15 +114,19 @@ def test_plan_cache_hits_and_pins():
                       l0_policy="estimate_at_plan", r=2)
     p = S.plan(cfg, (12, 8), torch.float64, device="cpu")
     before = S.cache_stats()
+    traces = S.trace_count()
     assert S.plan(cfg, (12, 8), torch.float64, device="cpu") is p
     after = S.cache_stats()
     assert after["hits"] == before["hits"] + 1
     assert after["misses"] == before["misses"]
+    # trace_count counts plan constructions: a hit builds nothing
+    assert S.trace_count() == traces == S.plan_cache_stats()["traces"]
     S.pin(p)
     assert S.cache_stats()["pinned"] >= 1
     S.unpin(p)
     other = S.plan(cfg, (12, 8), torch.float32, device="cpu")
     assert other is not p
+    assert S.trace_count() == traces + 1
 
 
 def test_plan_defaults_to_the_card():
@@ -171,8 +175,9 @@ def test_not_yet_ported_values_raise():
         S.SvdConfig(mode="bogus")
     p = S.plan(S.SvdConfig(method="zolo_static", l0=0.1), (8, 8),
                torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        p.audit()
+    # the plan audit is ported (tests/test_torch_analysis.py): it runs
+    rep = p.audit()
+    assert rep.ok and rep.host_syncs == 0 and rep.psum_counts == {}
     # svd_verified is ported (tests/test_torch_resilience.py): it runs
     u, s, vh, health = p.svd_verified(torch.eye(8, dtype=torch.float64))
     assert bool(health.finite) and torch.equal(s, p.svd(

@@ -404,7 +404,10 @@ def test_plan_cache_and_checks():
         interop.with_draws(p1, probe=np.zeros((48, 12)))
     with pytest.raises(ValueError, match="shape"):
         interop.with_draws(p1, omega=np.zeros((48, 3)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SP.trace_count()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        p1.audit()
+    # trace_count counts TopKPlan constructions: the two misses above
+    assert SP.trace_count() >= 2
+    traces = SP.trace_count()
+    assert SP.plan_topk(cfg, (96, 48), torch.float64, device="cpu") is p1
+    assert SP.trace_count() == traces
+    assert SP.topk_cache_stats()["traces"] == traces
+    assert p1.audit().ok
