@@ -187,6 +187,22 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     the phase-5 plan (ok, 0 host syncs, K1 10 / K2 2) and of the
     dynamic default (its host syncs reported).  Each audit prints the
     synchronising calls CUDA's sync debug mode saw, by line.
+19. the LM training path with ZoloMuon (``repro_torch.train``):
+    qwen3-8b at full width (d 4,096, 32/8 heads of 128, d_ff 12,288,
+    vocab 151,936, bf16 compute, f32 masters, per-stage remat), depth cut
+    to TRAIN_LAYERS, batch TRAIN_BATCH x TRAIN_SEQ of ``SyntheticLM``
+    tokens: one warm step and TRAIN_STEPS timed ones (seconds, tokens/s,
+    the optimizer's update and its ``orthogonalize`` calls apart from
+    forward+backward, peak memory), every loss and gradient norm finite,
+    K1/K2 launches in every timed step equal to the Muon plans' count
+    (per matrix 1 + 2r + I - 1 K1 and I K2); (b) one more step under
+    CUDA's sync debug mode (synchronising calls by line); (c) one leaf
+    kind's update on ``zolo_cuda`` against a ``zolo_static`` plan on the
+    card within MUON_TOL; (d) K1 and K2 at Muon's tall shape (12,288 x
+    4,096) beside their plain versions, library calls and bounds; (e)
+    ``python -m repro_torch.launch.train`` in process on the smoke
+    config, then its resume from the checkpoint it saved under
+    ``build/``.
 
 Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
 paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
@@ -206,6 +222,7 @@ run outside a checkout of the repository.  A full record is written to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -258,6 +275,23 @@ SERVE_KAPPA, SERVE_BATCH = 1e3, 4
 SERVE_FULL_BASE = 12_000
 SERVE_TOPK, SERVE_TOPK_N = 128, 4096
 SERVE_FAULT_N = 1536
+# phase 19: the LM training path with ZoloMuon at the full width of
+# TRAIN_ARCH (src/repro/configs/qwen3_8b.py): depth cut 36 -> TRAIN_LAYERS,
+# global batch 256 -> TRAIN_BATCH at the train_4k sequence length (b = 1
+# would leave every 4,096-wide gradient of its 4,095 predicted tokens
+# rank-deficient); one warm step, TRAIN_STEPS timed ones, one more under
+# CUDA's sync debug mode.  One leaf kind's Muon update on zolo_cuda is
+# held to the same momentum through a zolo_static plan on the card within
+# MUON_TOL of max|Q| (f32 Grams summed in another order over m = 12,288
+# rows, through 3 iterations: eps sqrt(m) ~ 1.3e-5, times a small factor)
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
+TRAIN_STEPS = 3
+MUON_TOL = 1e-4
+MUON_YARDSTICK = "stages/0/mlp/wo"
+# the launcher on the smoke config: LAUNCH_STEPS[0] steps, then a resume
+# to LAUNCH_STEPS[1] from the checkpoint it saved
+LAUNCH_STEPS = (4, 6)
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
                    "gram/simt": 10, "gram/wgmma": 0,
@@ -813,12 +847,9 @@ def k1_bound(m, n, itemsize, peak):
             "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes")
 
 
-def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
-    """K1's times: the f32 case at 11,999^2 and bf16 at 11,999^2 (rows
-    not 16-byte aligned: staged) and at 12,000^2 (as it lies), each beside
-    its plain version, one library call and its bound; the bf16 staging
-    copy alone."""
-    from repro_torch.kernels import matmul as kmm
+def k1_f32_times(clock, a32, reps):
+    """K1 on an f32 A (c = 0) beside its plain version, ``a.T @ a`` and
+    its bound."""
     from repro_torch.kernels import ops, ref
 
     m, n = a32.shape
@@ -827,7 +858,64 @@ def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
            "library_ms": clock.ms(lambda: a32.mT @ a32, reps),
            "library": "a.T @ a", "shape": f"A f32 ({m}, {n}), c = 0"}
     rec["bound_ms"], rec["bound_by"] = k1_bound(m, n, 4, PEAK_F32)
-    k1 = {"simt": rec}
+    return rec
+
+
+def k2_f32_times(torch, clock, x, t, a, mhat, reps):
+    """K2 (xw = 1) on an f32 X and (r, m, n) terms beside its plain
+    version, one ``addmm`` computing the whole combine (checked against
+    the plain version first) and its bound; printed."""
+    from repro_torch.kernels import ops, ref
+
+    m, n = x.shape
+    r = t.shape[0]
+    xrow = x.view(1, -1)
+    mh = float(mhat)  # read once, outside the timed calls
+    # one call computing mhat (xw X + sum_j a_j T_j) in f32 (xw = 1):
+    # the (1, r) @ (r, m n) product plus beta X
+    arow, tflat = a.view(1, r), t.reshape(r, -1)
+
+    def library():
+        return torch.addmm(xrow, arow, tflat, beta=mh, alpha=mh)
+
+    want = ref.polar_update_ref(x, t, a, mhat)
+    lib_err = float((library().view(m, n) - want).abs().amax())
+    check(lib_err <= K2_TOL_F32 * float(want.abs().amax()),
+          f"K2 r={r}: addmm is not the combine ({lib_err:.3e})")
+    del want
+    rec = {"ms": clock.ms(lambda: ops.polar_update(x, t, a, mhat),
+                          4 * reps, warm=2),
+           "plain_ms": clock.ms(
+               lambda: ref.polar_update_ref(x, t, a, mhat), reps),
+           "library_ms": clock.ms(library, 4 * reps, warm=2),
+           "library_max_abs_err": lib_err,
+           "einsum_terms_only_ms": clock.ms(
+               lambda: torch.einsum("j,jmn->mn", a, t), reps)}
+    nbytes = 4.0 * (r + 2) * m * n
+    flops = (2.0 * r + 2.0) * m * n
+    rec["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
+    rec["bound_by"] = "bytes" if nbytes / PEAK_BYTES > \
+        flops / PEAK_F32 else "operations"
+    rec["shape"] = f"X f32 ({m}, {n}), T ({r}, {m}, {n}), xw = 1"
+    say(f"K2 f32 r={r} ({m}, {n}): kernel {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, library (addmm) "
+        f"{rec['library_ms']:.3f} ms (max_abs_err against the plain "
+        f"version {lib_err:.3e}; einsum of the terms alone, without X "
+        f"and mhat: {rec['einsum_terms_only_ms']:.3f} ms), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
+    """K1's times: the f32 case at 11,999^2 and bf16 at 11,999^2 (rows
+    not 16-byte aligned: staged) and at 12,000^2 (as it lies), each beside
+    its plain version, one library call and its bound; the bf16 staging
+    copy alone."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops, ref
+
+    n = a32.shape[1]
+    k1 = {"simt": k1_f32_times(clock, a32, reps)}
     gen = torch.Generator(device=device).manual_seed(97)
     for size, tag in ((n, "staged"), (mm_aligned, "zero-copy")):
         bf = a32.to(torch.bfloat16) if size == n else torch.randn(
@@ -875,53 +963,14 @@ def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
           and torch.get_float32_matmul_precision() == "highest",
           "TF32 is on: the f32 plain and library times would not be f32")
     a32, t32, coef, mhat = tensors
-    m = n
     reps = 5 if device.type == "cuda" else 2
     recs = {}
 
     recs["gram"] = phase_times_gram(torch, device, clock, a32, mm_aligned,
                                     reps)
 
-    x = a32
-    xrow = x.view(1, -1)
-    mh = float(mhat)  # read once, outside the timed calls
-    out = {}
-    for r in (1, R):
-        t = t32[:r]
-        a = coef[:r]
-        # one call computing mhat (xw X + sum_j a_j T_j) in f32 (xw = 1):
-        # the (1, r) @ (r, m n) product plus beta X
-        arow, tflat = a.view(1, r), t.reshape(r, -1)
-
-        def library():
-            return torch.addmm(xrow, arow, tflat, beta=mh, alpha=mh)
-
-        want = ref.polar_update_ref(x, t, a, mhat)
-        lib_err = float((library().view(m, n) - want).abs().amax())
-        check(lib_err <= K2_TOL_F32 * float(want.abs().amax()),
-              f"K2 r={r}: addmm is not the combine ({lib_err:.3e})")
-        del want
-        rec = {"ms": clock.ms(lambda: ops.polar_update(x, t, a, mhat),
-                              4 * reps, warm=2),
-               "plain_ms": clock.ms(
-                   lambda: ref.polar_update_ref(x, t, a, mhat), reps),
-               "library_ms": clock.ms(library, 4 * reps, warm=2),
-               "library_max_abs_err": lib_err,
-               "einsum_terms_only_ms": clock.ms(
-                   lambda: torch.einsum("j,jmn->mn", a, t), reps)}
-        nbytes = 4.0 * (r + 2) * m * n
-        flops = (2.0 * r + 2.0) * m * n
-        rec["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
-        rec["bound_by"] = "bytes" if nbytes / PEAK_BYTES > \
-            flops / PEAK_F32 else "operations"
-        rec["shape"] = f"X f32 ({m}, {n}), T ({r}, {m}, {n}), xw = 1"
-        say(f"K2 f32 r={r}: kernel {rec['ms']:.3f} ms, plain "
-            f"{rec['plain_ms']:.3f} ms, library (addmm) "
-            f"{rec['library_ms']:.3f} ms (max_abs_err against the plain "
-            f"version {lib_err:.3e}; einsum of the terms alone, without X "
-            f"and mhat: {rec['einsum_terms_only_ms']:.3f} ms), bound "
-            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
-        out[r] = rec
+    out = {r: k2_f32_times(torch, clock, a32, t32[:r], coef[:r], mhat, reps)
+           for r in (1, R)}
     recs["grouped_combine"] = dict(out[R], r1=out[1])
 
     # K3, one record per route: simt (f32), wgmma (bf16, staged at 11,999
@@ -3283,6 +3332,350 @@ def phase_serve(torch, device, clock, a, s_main, main_rec, sizes):
           f"18e dynamic default audit {out['audit_dynamic_default']}")
     return out
 
+class TrainProbe:
+    """Times the parts of a train step while entered: the optimizer's
+    ``ZoloMuon.update`` and every ``orthogonalize`` inside it (module
+    attributes of ``repro_torch.optim.muon`` wrapped, and restored on
+    exit), each between two device synchronisations."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.update_s = self.orth_s = 0.0
+        self.orth_calls = 0
+
+    def __enter__(self):
+        from repro_torch.optim import muon
+
+        self.mod = muon
+        self.real = (muon.orthogonalize, muon.ZoloMuon.update)
+        real_orth, real_update = self.real
+
+        def timed(fn, field):
+            def run(*args, **kwargs):
+                self.clock.sync()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.clock.sync()
+                setattr(self, field, getattr(self, field)
+                        + time.perf_counter() - t0)
+                if field == "orth_s":
+                    self.orth_calls += 1
+                return out
+            return run
+
+        muon.orthogonalize = timed(real_orth, "orth_s")
+        muon.ZoloMuon.update = timed(real_update, "update_s")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.orthogonalize, self.mod.ZoloMuon.update = self.real
+        return False
+
+
+def sync_sites(torch, fn):
+    """Run ``fn`` under CUDA's sync debug mode: (its result, the number
+    of synchronising calls, {site: count}), a site being the warning's
+    file:line and the innermost ``repro_torch`` frame that led to it."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f"{os.sep}repro_torch{os.sep}" in f.filename]
+        where = (f" via {os.path.relpath(ours[-1].filename, HERE)}:"
+                 f"{ours[-1].lineno}" if ours else "")
+        tail = os.sep.join(filename.split(os.sep)[-3:])
+        sites[f"{tail}:{lineno}{where}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum(sites.values()), dict(sites)
+
+
+def muon_launch_want(plans):
+    """K1/K2 launches of one optimizer step: per Muon leaf ``(plan,
+    matrices)``, each matrix one static ``zolo_cuda`` solve of its plan
+    (CholeskyQR2 first: 1 + 2r K1, one K1 per later iteration, one K2 an
+    iteration)."""
+    want = dict.fromkeys(zolo_launch_want(1, 0), 0)
+    for plan, count in plans:
+        per = zolo_launch_want(len(plan.schedule), 1 + 2 * plan.r)
+        for k in want:
+            want[k] += count * per[k]
+    return want
+
+
+def phase_train(torch, device, clock, sizes):
+    """Phase 19: the LM training path of ``repro_torch`` with ZoloMuon.
+
+    ``make_train_step`` on ``sizes["cfg"]`` (qwen3-8b at full width on the
+    card), f32 masters, bf16 compute, per-stage remat, SyntheticLM data:
+    one warm step, then timed steps (launches read around each, the
+    optimizer's update and its ``orthogonalize`` calls timed apart), then
+    one step under CUDA's sync debug mode.  Checks: finite losses and
+    gradient norms, K1/K2 launches a step equal to the plans' count, one
+    leaf kind's update against a ``zolo_static`` plan on the card, K1 and
+    K2 at Muon's tall shape against their plain versions; then the
+    launcher (``repro_torch.launch.train``) on the smoke config, and its
+    resume from the checkpoint it saved."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch import tree
+    import repro_torch.solver as S
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.optim import muon as MU
+    from repro_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    counters = kernel_modules()
+    on_card = device.type == "cuda"
+    cfg, b, s = sizes["cfg"], sizes["batch"], sizes["seq"]
+    muon_cfg = MU.MuonConfig()
+    say(f"== phase 19: training {cfg.name} ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype} compute, remat {cfg.remat}), batch {b} x {s}, "
+        f"ZoloMuon ({MU.polar_method(muon_cfg.method, muon_cfg.polar_dtype)},"
+        f" r = {muon_cfg.r}, l0 = {muon_cfg.l0:g})")
+    init_fn, step_fn = TS.make_train_step(cfg, muon_cfg, total_steps=100,
+                                          warmup=1)
+    clock.sync()
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    clock.sync()
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+           "seq": s, "init_s": time.perf_counter() - t0,
+           "params": M.param_count(state.params)}
+    if on_card:
+        rec["state_bytes"] = torch.cuda.memory_allocated()
+    names, flags, _ = tree.flatten_with_names(MU.muon_labels(state.params))
+    shapes = [tuple(p.shape) for p in tree.leaves(state.params)]
+    muon_leaves = [(n, sh) for n, f, sh in zip(names, flags, shapes) if f]
+    rec["muon_leaves"] = {n: list(sh) for n, sh in muon_leaves}
+    rec["solves_per_step"] = sum(math.prod(sh[:-2]) for _, sh in muon_leaves)
+    say(f"{rec['params']:,} parameters, init {rec['init_s']:.3f} s; Muon "
+        f"leaves {rec['muon_leaves']} ({rec['solves_per_step']} polar "
+        f"solves a step)"
+        + (f"; state {rec['state_bytes'] / 2**30:.2f} GiB" if on_card
+           else ""))
+    data = SyntheticLM(cfg.vocab_size, s, b, dtype=cfg.dtype,
+                       device=str(device))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(1 + sizes["steps"]):
+        batch = data.batch_at(i)
+        with TrainProbe(clock) as probe:
+            zero_counts(counters)
+            clock.sync()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            clock.sync()
+            secs = time.perf_counter() - t0
+            launches = read_counts(counters)
+        m = {k: float(v) for k, v in metrics.items()}
+        steps.append({"step": i, "seconds": secs, "update_s": probe.update_s,
+                      "orthogonalize_s": probe.orth_s,
+                      "orthogonalize_calls": probe.orth_calls,
+                      "fwd_bwd_s": secs - probe.update_s,
+                      "launches": launches, **m})
+        say(f"{'warm' if i == 0 else 'timed'} step {i}: {secs:.3f} s "
+            f"(forward+backward {secs - probe.update_s:.3f}, update "
+            f"{probe.update_s:.3f} of which orthogonalize {probe.orth_s:.3f}"
+            f" in {probe.orth_calls} calls), loss {m['loss']:.5f}, grad "
+            f"norm {m['grad_norm']:.5f}, lr scale {m['lr_scale']:g}, K1 "
+            f"{launches['gram']} (simt {launches['gram/simt']}, wgmma "
+            f"{launches['gram/wgmma']}) K2 {launches['grouped_combine']}")
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"19: step {i} loss {m['loss']} grad norm {m['grad_norm']}")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
+        else None
+    rec["steps"] = steps
+    timed = steps[1:]
+    rec["step_s"] = sum(t["seconds"] for t in timed) / len(timed)
+    rec["tokens_per_s"] = b * s / rec["step_s"]
+    for k in ("update_s", "orthogonalize_s", "fwd_bwd_s"):
+        rec[k] = sum(t[k] for t in timed) / len(timed)
+
+    # the plans every Muon leaf ran on (cached per kind after step 0)
+    plans = {}
+    for _, sh in muon_leaves:
+        rows, cols = sh[-2:]
+        p = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                           muon_cfg.l0, muon_cfg.max_iters,
+                           muon_cfg.polar_dtype, str(device))
+        plans.setdefault((rows, cols), [p, 0])[1] += math.prod(sh[:-2])
+    want = muon_launch_want([tuple(v) for v in plans.values()])
+    rec["plans"] = {f"{k[0]}x{k[1]}": {
+        "method": p.method, "r": p.r, "iterations": len(p.schedule),
+        "canonical": [max(k), min(k)], "solves_per_step": c}
+        for k, (p, c) in plans.items()}
+    rec["launches_per_step"] = timed[-1]["launches"]
+    rec["launches_want"] = want
+    say(f"plans {rec['plans']}; K1/K2 a step expected {want['gram']} / "
+        f"{want['grouped_combine']}")
+    check(all(p.method == "zolo_cuda" for p, _ in plans.values()),
+          f"19: Muon plans {rec['plans']}")
+    if on_card:
+        for t in timed:
+            check(t["launches"] == want, f"19: step {t['step']} launched "
+                  f"{t['launches']}, expected {want}")
+
+    say("== phase 19b: one step under CUDA's sync debug mode")
+    batch = data.batch_at(len(steps))
+    if on_card:
+        (state, metrics), n_sync, sites = sync_sites(
+            torch, lambda: step_fn(state, batch))
+        clock.sync()
+    else:
+        state, metrics = step_fn(state, batch)
+        n_sync, sites = None, {}
+    rec["device_syncs"], rec["device_sync_sites"] = n_sync, sites
+    say(f"synchronising calls in one step: {n_sync} {sites}")
+    check(math.isfinite(float(metrics["loss"])), "19b: loss not finite")
+
+    say(f"== phase 19c: {MUON_YARDSTICK}'s Muon update, zolo_cuda against "
+        "zolo_static on the same momentum")
+    mu = dict(zip(names, tree.leaves(state.opt["mu"])))[MUON_YARDSTICK]
+    lead, (rows, cols) = mu.shape[:-2], mu.shape[-2:]
+    p_cuda = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                            muon_cfg.l0, muon_cfg.max_iters,
+                            muon_cfg.polar_dtype, str(device))
+    p_static = S.plan(dataclasses.replace(p_cuda.config,
+                                          method="zolo_static"),
+                      (rows, cols), torch.float32, device=device)
+    stack = mu.reshape((-1, rows, cols))
+    ys = {}
+    for label, p in (("zolo_cuda", p_cuda), ("zolo_static", p_static)):
+        zero_counts(counters)
+        clock.sync()
+        t0 = time.perf_counter()
+        q = p.polar_batched(stack, want_h=False)[0]
+        clock.sync()
+        ys[label] = {"seconds": time.perf_counter() - t0,
+                     "launches": read_counts(counters), "q": q}
+    q_cuda, q_static = ys["zolo_cuda"].pop("q"), ys["zolo_static"].pop("q")
+    err = float((q_cuda - q_static).abs().amax() / q_static.abs().amax())
+    qc = (q_cuda if rows >= cols else q_cuda.mT).double()
+    orth = float(torch.linalg.matrix_norm(qc.mT @ qc - torch.eye(
+        min(rows, cols), dtype=torch.float64, device=device)).amax()
+        / min(rows, cols))
+    del qc
+    rec["yardstick"] = {"leaf": MUON_YARDSTICK, "shape": list(mu.shape),
+                        "max_rel_err": err, "orth": orth, **ys}
+    say(f"{MUON_YARDSTICK} {tuple(mu.shape)}: max|Q_cuda - Q_static| / "
+        f"max|Q| {err:.3e} (tolerance {MUON_TOL:g}), orthogonality "
+        f"{orth:.3e}, zolo_cuda {ys['zolo_cuda']['seconds']:.3f} s (K1 "
+        f"{ys['zolo_cuda']['launches']['gram']} K2 "
+        f"{ys['zolo_cuda']['launches']['grouped_combine']}), zolo_static "
+        f"{ys['zolo_static']['seconds']:.3f} s")
+    check(err <= MUON_TOL, f"19c: zolo_cuda vs zolo_static {err:.3e}")
+    if on_card:
+        per = zolo_launch_want(len(p_cuda.schedule), 1 + 2 * p_cuda.r)
+        count = math.prod(lead)
+        check(ys["zolo_cuda"]["launches"]["gram"] == count * per["gram"]
+              and ys["zolo_cuda"]["launches"]["grouped_combine"]
+              == count * per["grouped_combine"]
+              and ys["zolo_static"]["launches"]["gram"] == 0
+              and ys["zolo_static"]["launches"]["grouped_combine"] == 0,
+              f"19c launches {ys}")
+    del q_cuda, q_static, stack, mu, state, metrics, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    say(f"== phase 19d: K1 and K2 at Muon's tall shape ({max(rows, cols)}, "
+        f"{min(rows, cols)})")
+    m_, n_ = max(rows, cols), min(rows, cols)
+    reps = 5 if on_card else 2
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((m_, n_), generator=gen, device=device)
+    r = muon_cfg.r
+    t = torch.randn((r, m_, n_), generator=gen, device=device)
+    coef = torch.randn((r,), generator=gen, device=device)
+    mhat = torch.tensor(0.987, device=device)
+    from repro_torch.kernels import ops, ref
+
+    g_err = float((ops.gram(x) - ref.gram_ref(x)).abs().amax()
+                  / ref.gram_ref(x).abs().amax())
+    c_err = float((ops.polar_update(x, t, coef, mhat)
+                   - ref.polar_update_ref(x, t, coef, mhat)).abs().amax()
+                  / ref.polar_update_ref(x, t, coef, mhat).abs().amax())
+    check(g_err <= K1_TOL and c_err <= K2_TOL_F32,
+          f"19d: K1 {g_err:.3e} K2 {c_err:.3e} against the plain versions")
+    k1 = dict(k1_f32_times(clock, x, reps), max_rel_err=g_err)
+    say(f"K1 simt {k1['shape']}: kernel {k1['ms']:.3f} ms, plain "
+        f"{k1['plain_ms']:.3f} ms, library {fmt_ms(k1['library_ms'])}, "
+        f"bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}); max error / "
+        f"max|G| {g_err:.3e}")
+    k2 = dict(k2_f32_times(torch, clock, x, t, coef, mhat, reps),
+              max_rel_err=c_err)
+    rec["kernel_times"] = {"gram/simt": k1, "grouped_combine": k2}
+    del x, t
+
+    say(f"== phase 19e: the launcher on the {TRAIN_ARCH} smoke config, "
+        f"{LAUNCH_STEPS[0]} steps, then a resume to {LAUNCH_STEPS[1]}")
+    ckpt_dir = os.path.join(HERE, "build", "train_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = os.path.join(ckpt_dir, "log.jsonl")
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--batch", "2", "--seq", "64",
+            "--device", str(device), "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", "2", "--log", log]
+    outs = []
+    zero_counts(counters)
+    for n_steps in LAUNCH_STEPS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            final = launch_train.main(args + ["--steps", str(n_steps)])
+        outs.append(buf.getvalue())
+        check(int(final.step) == n_steps,
+              f"19e: the launcher stopped at {int(final.step)}")
+    clock.sync()
+    with open(log) as f:
+        logged = [json.loads(line) for line in f]
+    launch = {"launches": read_counts(counters), "log": logged,
+              "steps": [int(r_["step"]) for r_ in logged],
+              "checkpoints": sorted(os.listdir(ckpt_dir))}
+    say(f"launcher: {outs[1].strip().splitlines()} log {logged}; launches "
+        f"{launch['launches']}")
+    check(f"[loop] resumed from step {LAUNCH_STEPS[0]}" in outs[1]
+          and "resumed" not in outs[0],
+          f"19e: no resume from step {LAUNCH_STEPS[0]}: {outs}")
+    check(all(math.isfinite(r_["loss"]) for r_ in logged),
+          f"19e: a logged loss is not finite {logged}")
+    if on_card:
+        check(launch["launches"]["gram"] > 0
+              and launch["launches"]["grouped_combine"] > 0,
+              f"19e: the launcher's Muon solves ran no kernel "
+              f"{launch['launches']}")
+    rec["launcher"] = launch
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 19 ({rec['seconds']:.1f} s): {rec['step_s']:.3f} s a step, "
+        f"{rec['tokens_per_s']:.1f} "
+        f"tokens/s, update {rec['update_s']:.3f} s (orthogonalize "
+        f"{rec['orthogonalize_s']:.3f} s), forward+backward "
+        f"{rec['fwd_bwd_s']:.3f} s, peak "
+        + ("not measured" if rec["peak_bytes"] is None
+           else f"{rec['peak_bytes'] / 2**30:.2f} GiB"))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -3305,6 +3698,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import configs as CFG
+
     device = torch.device("cpu") if args.rehearse_cpu else \
         torch.device("cuda", 0)
     if device.type == "cuda":
@@ -3318,6 +3713,8 @@ def main(argv=None) -> int:
                  "rate": SERVE_RATE, "full_base": SERVE_FULL_BASE,
                  "topk": SERVE_TOPK, "topk_n": SERVE_TOPK_N,
                  "fault_n": SERVE_FAULT_N}
+        train_cfg, train_b, train_s = CFG.get_config(TRAIN_ARCH), \
+            TRAIN_BATCH, TRAIN_SEQ
     else:
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
@@ -3327,6 +3724,10 @@ def main(argv=None) -> int:
         serve = {"shapes": ((96, 64), (90, 60), (60, 90), (48, 48)),
                  "requests": 8, "rate": 50.0, "full_base": n + 1,
                  "topk": 8, "topk_n": 96, "fault_n": 48}
+        train_cfg, train_b, train_s = CFG.get_smoke_config(TRAIN_ARCH), 2, \
+            64
+    train = {"cfg": dataclasses.replace(train_cfg, num_layers=TRAIN_LAYERS),
+             "batch": train_b, "seq": train_s, "steps": TRAIN_STEPS}
     clock = Clock(torch, device)
 
     t_start = time.perf_counter()
@@ -3370,6 +3771,9 @@ def main(argv=None) -> int:
     record["serve"] = serve_rec = phase_serve(torch, device, clock, a,
                                               s_main, main_rec, serve)
     del a
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    record["train"] = train_rec = phase_train(torch, device, clock, train)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels = []
@@ -3419,6 +3823,11 @@ def main(argv=None) -> int:
                    "audit_static": serve_rec["audit_static"]["launches"],
                    "audit_dynamic_default":
                        serve_rec["audit_dynamic_default"]["launches"]})
+    # phase 19: one timed train step (every timed step was checked equal)
+    # and the launcher's two runs
+    solves.update({f"train_step_{TRAIN_ARCH}":
+                       train_rec["launches_per_step"],
+                   "launch_train_smoke": train_rec["launcher"]["launches"]})
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],
@@ -3454,6 +3863,11 @@ def main(argv=None) -> int:
             aligned = times["gram"][f"wgmma_{mm_aligned}"]
             rec["aligned"] = {k: aligned[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
+        if key in train_rec["kernel_times"]:
+            rec["muon_shape"] = {k: train_rec["kernel_times"][key][k] for k
+                                 in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "shape",
+                                     "max_rel_err")}
         kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -1,4 +1,4 @@
-"""Carry the reference's solver state into the port.
+"""Carry the reference's solver state and model weights into the port.
 
 An SVD solver has no weights: its state is the plan — the configuration,
 the coefficient schedule and the power-iteration start vector of the
@@ -7,7 +7,10 @@ matrix, the SRHT's signs and columns, the d&c extraction probe).  These
 helpers take that state as plain Python values and numpy arrays (what
 ``dataclasses.asdict`` of a reference ``SvdConfig`` and ``numpy.asarray``
 of its arrays give), so the port and the JAX reference compute the same
-thing on the same input.  Nothing of ``repro`` is imported here.
+thing on the same input.  A model's state is its params pytree:
+:func:`model_params_from_numpy` takes the reference's (as numpy arrays)
+into the port's nested dict of tensors, name for name, and
+:func:`tree_to_numpy` goes back.  Nothing of ``repro`` is imported here.
 """
 
 from __future__ import annotations
@@ -113,3 +116,92 @@ def with_draws(p: TopKPlan, **arrays) -> TopKPlan:
                              f"the plan needs {want[name]}")
         draws[name] = t
     return dataclasses.replace(p, draws=draws)
+
+
+def _params_layout(cfg) -> dict:
+    """{leaf name: shape} of ``repro.models.model.init_params(cfg, ...)``
+    for an attention-only dense config (the port's layout is the same)."""
+    from repro_torch.models import model as _model
+
+    _model.check_supported(cfg)
+    d, v, ns = cfg.d_model, cfg.vocab_padded, cfg.num_stages
+    norms = cfg.norm_type != "nonparam_ln"
+
+    def layer(prefix, lead):
+        out = {}
+        if norms:
+            out["norm1"] = lead + (d,)
+        out["mixer/wq"] = lead + (d, cfg.q_dim)
+        out["mixer/wk"] = lead + (d, cfg.kv_dim)
+        out["mixer/wv"] = lead + (d, cfg.kv_dim)
+        out["mixer/wo"] = lead + (cfg.q_dim, d)
+        if cfg.qk_norm:
+            out["mixer/q_scale"] = lead + (cfg.head_dim,)
+            out["mixer/k_scale"] = lead + (cfg.head_dim,)
+        if cfg.mlp_type != "none":
+            if norms:
+                out["norm2"] = lead + (d,)
+            ins = ("wi_gate", "wi_up") if cfg.mlp_type == "swiglu" \
+                else ("wi",)
+            out.update({f"mlp/{w}": lead + (d, cfg.d_ff) for w in ins})
+            out["mlp/wo"] = lead + (cfg.d_ff, d)
+        return {f"{prefix}/{k}": s for k, s in out.items()}
+
+    want = {"embed": (v, d)}
+    if norms:
+        want["final_norm"] = (d,)
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (d, v)
+    for j in range(len(cfg.block_pattern)):
+        want.update(layer(f"stages/{j}", (ns,)))
+    for i in range(len(cfg.remainder_blocks)):
+        want.update(layer(f"rem/{i}", ()))
+    return want
+
+
+def _tensor(x) -> torch.Tensor:
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
+def tree_from_numpy(tree, device="cpu", dtype=None):
+    """A tree of numpy arrays (dicts, tuples, lists, None; bf16 as JAX
+    hands it out) as the same tree of tensors on ``device`` (cast to
+    ``dtype`` when given)."""
+    from repro_torch import tree as _tree
+
+    return _tree.map(lambda x: _tensor(x).to(device=device, dtype=dtype),
+                     tree)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as the same tree of numpy arrays (the form the
+    reference's ``jax.tree.map(jnp.asarray, ...)`` takes); bf16 leaves
+    come out as f32 (exact), numpy having no bf16."""
+    from repro_torch import tree as _tree
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return _tree.map(host, tree)
+
+
+def model_params_from_numpy(tree, cfg, device="cpu"):
+    """The port's parameters from the reference's params pytree of
+    ``cfg`` (``jax.tree.map(numpy.asarray, params)``), name for name and
+    in the reference's dtypes; raises if a leaf is missing, extra or of
+    another shape than the config's layout."""
+    from repro_torch import tree as _tree
+
+    params = tree_from_numpy(tree, device=device)
+    names, leaves, _ = _tree.flatten_with_names(params)
+    got = {n: tuple(t.shape) for n, t in zip(names, leaves)}
+    want = _params_layout(cfg)
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"params tree does not match the {cfg.name!r} "
+                         f"layout: {diff[:8]}")
+    return params
