@@ -203,6 +203,20 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     ``python -m repro_torch.launch.train`` in process on the smoke
     config, then its resume from the checkpoint it saved under
     ``build/``.
+20. LM serving (``repro_torch.serve.ServeEngine``, greedy) and the MoE,
+    SSD and RG-LRU families at full width, depth cut (SERVE_LM): (a)
+    qwen3-8b serving from a 32,768-slot KV ring; (b) recurrentgemma-2b
+    serving after a prompt longer than its 2,048 window and not a
+    multiple of it; (c) mamba2-130m serving and training (ZoloMuon); (d)
+    moonshot-v1-16b-a3b training (Muon on the 64-expert stacks) and
+    serving.  Each serving run: prefill seconds, decode ms a token (CUDA
+    events around each step), tokens/s, cache and peak memory, K1-K4
+    launches (0), the synchronising calls of one decode step (0), and
+    (a-c) the decode logits against ``hidden_states`` -> ``lm_head`` over
+    the same tokens within SERVE_LM_TOL, the greedy tokens equal to that
+    forward's argmax wherever its top-2 gap exceeds the tolerance.  Each
+    training run: seconds a step, the share in ``orthogonalize``, peak
+    memory, and K1/K2 a step equal to the Muon plans' count.
 
 Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
 paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
@@ -211,7 +225,8 @@ The line before the last names the card and its power limit; the one
 before it is a JSON object with one record per kernel and route
 (``gram/simt``, ``gram/wgmma``, ``grouped_combine``, ``matmul/simt``,
 ``matmul/wgmma``, ``flash_attention/wgmma``, ``flash_attention/simt``),
-each with its launches on every path above (``launches_by_path``);
+each with its launches on every path above (``launches_by_path``,
+phase 20's serving and training runs included);
 the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line.  It also exits non-zero
 when no CUDA device is present (unless rehearsing on the CPU) and when
@@ -292,6 +307,69 @@ MUON_YARDSTICK = "stages/0/mlp/wo"
 # the launcher on the smoke config: LAUNCH_STEPS[0] steps, then a resume
 # to LAUNCH_STEPS[1] from the checkpoint it saved
 LAUNCH_STEPS = (4, 6)
+# phase 20: LM serving (ServeEngine) and the MoE, SSD and RG-LRU families
+# at full width, depth cut: (a) qwen3-8b (src/repro/configs/qwen3_8b.py),
+# 36 -> 2 layers, b 8 (decode_32k's 128, cut), cache capacity 32,768
+# (decode_32k's context), prompt 4,096, 64 greedy tokens; (b)
+# recurrentgemma-2b, 26 -> 3 layers (one (R, R, A) stage), b 4, prompt
+# 3,000 (longer than the 2,048 window and not a multiple of it), max_len
+# 4,096, 32 tokens; (c) mamba2-130m at full depth (24 layers): serve b 8,
+# prompt 4,096, 64 tokens, and train one warm and 2 timed steps at b 2 x
+# 4,096; (d) moonshot-v1-16b-a3b, 48 -> 1 layer: train one warm and one
+# timed step at b 2 x 4,096 (Muon on the 64-expert stacks), then serve b
+# 4, prompt 2,048, 32 tokens, with a capacity factor of num_experts / top_k
+# so that no token is dropped.  Decode logits are held to hidden_states ->
+# lm_head over the same tokens within SERVE_LM_TOL of max|logits| (bf16
+# products and activations through the cut depth, summed in another order
+# by the prefill's blocked attention and the decode's ring; the bf16
+# forward test of tests/test_torch_models.py holds the port to the
+# reference at the same 5e-2); in (d) the capacity factor keeps the
+# forward's b s tokens from coupling, as decode routes b at a time.  Each
+# training case holds the updates of its YARDSTICKS leaves on zolo_cuda to
+# zolo_static on the card within MUON_TOL (the m of these leaves is at
+# most 3,352, below phase 19c's 12,288), and K1/K2 at each of its Muon
+# shapes to their plain versions
+SERVE_LM_TOL = 5e-2
+# what one decode step may allocate beyond the caches it writes in place:
+# one layer's cache and this slack for a layer's one-token activations and
+# the ring's f32 chunk (DECODE_CHUNK slots of k and v: 256 MiB at 20a's b
+# 8, 8 kv heads of 128), so that it does not grow with depth
+DECODE_SLACK = 256 * 2**20
+SERVE_LM = {
+    "20a": {"arch": "qwen3-8b", "layers": 2, "parts": ("serve",),
+            "serve": {"batch": 8, "prompt": 4096, "gen": 64,
+                      "max_len": 32768}},
+    "20b": {"arch": "recurrentgemma-2b", "layers": 3, "parts": ("serve",),
+            "serve": {"batch": 4, "prompt": 3000, "gen": 32,
+                      "max_len": 4096}},
+    "20c": {"arch": "mamba2-130m", "layers": 24, "parts": ("serve", "train"),
+            "serve": {"batch": 8, "prompt": 4096, "gen": 64,
+                      "max_len": 4096 + 64},
+            "train": {"batch": 2, "seq": 4096, "steps": 2,
+                      "yardsticks": ("stages/0/mixer/in_proj",
+                                     "stages/0/mixer/out_proj")}},
+    "20d": {"arch": "moonshot-v1-16b-a3b", "layers": 1,
+            "parts": ("train", "serve"),
+            "train": {"batch": 2, "seq": 4096, "steps": 1,
+                      "yardsticks": ("stages/0/mixer/wq",
+                                     "stages/0/mlp/router",
+                                     "stages/0/mlp/wi_gate",
+                                     "stages/0/mlp/wo")},
+            "serve": {"batch": 4, "prompt": 2048, "gen": 32,
+                      "max_len": 2048 + 32}},
+}
+# the CPU rehearsal: the same cases on the smoke configs at a tiny size
+SERVE_LM_REHEARSAL = {
+    "20a": {"layers": 2, "serve": {"batch": 2, "prompt": 48, "gen": 6,
+                                   "max_len": 64}},
+    "20b": {"layers": 3, "serve": {"batch": 2, "prompt": 40, "gen": 5,
+                                   "max_len": 64}},
+    "20c": {"layers": 3, "serve": {"batch": 2, "prompt": 40, "gen": 6,
+                                   "max_len": 46},
+            "train": {"batch": 2, "seq": 64, "steps": 2}},
+    "20d": {"layers": 1, "train": {"batch": 2, "seq": 64, "steps": 1},
+            "serve": {"batch": 2, "prompt": 32, "gen": 4, "max_len": 36}},
+}
 RAGGED = (1000, 333)
 EXPECT_LAUNCHES = {"gram": 10, "grouped_combine": 2,  # per static solve
                    "gram/simt": 10, "gram/wgmma": 0,
@@ -3385,17 +3463,27 @@ def sync_sites(torch, fn):
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        ours = [f for f in traceback.extract_stack()
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack
                 if f"{os.sep}repro_torch{os.sep}" in f.filename]
+        # no frame of the port: name the caller's last frames instead
         where = (f" via {os.path.relpath(ours[-1].filename, HERE)}:"
-                 f"{ours[-1].lineno}" if ours else "")
+                 f"{ours[-1].lineno}" if ours else " via " + " < ".join(
+                     f"{os.path.basename(f.filename)}:{f.lineno}"
+                     for f in reversed(stack[-6:])))
         tail = os.sep.join(filename.split(os.sep)[-3:])
         sites[f"{tail}:{lineno}{where}"] += 1
 
+    prev = torch.cuda.get_sync_debug_mode()
+    # the first switch to "warn" in a process reports one synchronising
+    # call of its own (torch 2.11+cu128): make it outside the window
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(prev)
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
-        prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
@@ -3417,6 +3505,178 @@ def muon_launch_want(plans):
     return want
 
 
+def muon_leaf_shapes(params):
+    """(every leaf name, [(name, shape)] of the Muon-labelled leaves)."""
+    from repro_torch import tree
+    from repro_torch.optim import muon as MU
+
+    names, flags, _ = tree.flatten_with_names(MU.muon_labels(params))
+    shapes = [tuple(p.shape) for p in tree.leaves(params)]
+    return names, [(n, sh) for n, f, sh in zip(names, flags, shapes) if f]
+
+
+def muon_plans(muon_cfg, muon_leaves, device):
+    """The plans every Muon leaf runs on (cached per kind after the first
+    step): ({(rows, cols): [plan, solves a step]}, the K1/K2 launches a
+    step they predict, a printable record)."""
+    from repro_torch.optim import muon as MU
+
+    plans = {}
+    for _, sh in muon_leaves:
+        rows, cols = sh[-2:]
+        p = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                           muon_cfg.l0, muon_cfg.max_iters,
+                           muon_cfg.polar_dtype, str(device))
+        plans.setdefault((rows, cols), [p, 0])[1] += math.prod(sh[:-2])
+    want = muon_launch_want([tuple(v) for v in plans.values()])
+    rec = {f"{k[0]}x{k[1]}": {
+        "method": p.method, "r": p.r, "iterations": len(p.schedule),
+        "canonical": [max(k), min(k)], "solves_per_step": c}
+        for k, (p, c) in plans.items()}
+    return plans, want, rec
+
+
+def muon_yardstick(torch, device, clock, counters, muon_cfg, leaf, mu,
+                   label, f64=False):
+    """One Muon leaf's update on the card: its momentum ``mu`` through its
+    ``zolo_cuda`` plan and through a ``zolo_static`` plan of the same
+    config, on the same inputs.  Checks the K1/K2 launches of each run
+    (the zolo_static one none) and max|Q_cuda - Q_static| / max|Q| within
+    MUON_TOL.  With ``f64`` the two are also held to the same plan solved
+    in f64 (``zolo_static``, no f32 compute), and the matrices'
+    sigma_min / sigma_max read from their f64 Grams: where a matrix has
+    singular values below the f32 Gram's floor (sqrt(eps) sigma_max) the
+    f32 polar factor is not determined to MUON_TOL by any route, so there
+    the check is that zolo_cuda lies no further from the f64 factor than
+    twice zolo_static's distance plus MUON_TOL, and the direct MUON_TOL
+    check holds wherever zolo_static itself is within MUON_TOL of the f64
+    factor.  Returns the record (errors, orthogonality, conditioning,
+    times, launches)."""
+    import dataclasses
+
+    import repro_torch.solver as S
+    from repro_torch.optim import muon as MU
+
+    on_card = device.type == "cuda"
+    lead, (rows, cols) = mu.shape[:-2], mu.shape[-2:]
+    p_cuda = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                            muon_cfg.l0, muon_cfg.max_iters,
+                            muon_cfg.polar_dtype, str(device))
+    p_static = S.plan(dataclasses.replace(p_cuda.config,
+                                          method="zolo_static"),
+                      (rows, cols), torch.float32, device=device)
+    stack = mu.reshape((-1, rows, cols))
+    ys = {}
+    for route, p in (("zolo_cuda", p_cuda), ("zolo_static", p_static)):
+        zero_counts(counters)
+        clock.sync()
+        t0 = time.perf_counter()
+        q = p.polar_batched(stack, want_h=False)[0]
+        clock.sync()
+        ys[route] = {"seconds": time.perf_counter() - t0,
+                     "launches": read_counts(counters), "q": q}
+    q_cuda, q_static = ys["zolo_cuda"].pop("q"), ys["zolo_static"].pop("q")
+    err = float((q_cuda - q_static).abs().amax() / q_static.abs().amax())
+    qc = (q_cuda if rows >= cols else q_cuda.mT).double()
+    orth = float(torch.linalg.matrix_norm(qc.mT @ qc - torch.eye(
+        min(rows, cols), dtype=torch.float64, device=device)).amax()
+        / min(rows, cols))
+    del qc
+    rec = {"leaf": leaf, "shape": list(mu.shape), "max_rel_err": err,
+           "orth": orth, **ys}
+    direct = True
+    if f64:
+        a64 = stack.double()
+        p64 = S.plan(dataclasses.replace(p_cuda.config, method="zolo_static",
+                                         compute_dtype=None),
+                     (rows, cols), torch.float64, device=device)
+        q64 = p64.polar_batched(a64, want_h=False)[0]
+        s64 = q64.abs().amax()
+        per = [(q - q64).abs().amax(dim=(-2, -1)) / s64
+               for q in (q_cuda.double(), q_static.double())]
+        g = a64.mT @ a64 if rows >= cols else a64 @ a64.mT
+        sig = torch.linalg.eigvalsh(g).clamp(min=0).sqrt()  # ascending
+        ratio = sig[:, 0] / sig[:, -1]
+        floor = math.sqrt(torch.finfo(torch.float32).eps)
+        worst = int(per[0].argmax())
+        rec.update({
+            "err_cuda_vs_f64": float(per[0].max()),
+            "err_static_vs_f64": float(per[1].max()),
+            "sigma_ratio_min": float(ratio.min()),
+            "matrices_below_f32_gram_floor": int((ratio < floor).sum()),
+            "matrices": len(ratio), "worst_matrix": worst,
+            "worst_sigma_ratio": float(ratio[worst])})
+        del a64, q64, g, sig
+        direct = rec["err_static_vs_f64"] <= MUON_TOL
+    say(f"{label} {leaf} {tuple(mu.shape)}: max|Q_cuda - Q_static| / "
+        f"max|Q| {err:.3e} (tolerance {MUON_TOL:g}), orthogonality "
+        f"{orth:.3e}, zolo_cuda {ys['zolo_cuda']['seconds']:.3f} s (K1 "
+        f"{ys['zolo_cuda']['launches']['gram']} K2 "
+        f"{ys['zolo_cuda']['launches']['grouped_combine']}), zolo_static "
+        f"{ys['zolo_static']['seconds']:.3f} s"
+        + (f"; against the f64 solve zolo_cuda {rec['err_cuda_vs_f64']:.3e}"
+           f", zolo_static {rec['err_static_vs_f64']:.3e}; sigma_min / "
+           f"sigma_max down to {rec['sigma_ratio_min']:.3e} "
+           f"({rec['matrices_below_f32_gram_floor']} of "
+           f"{rec['matrices']} matrices below sqrt(eps_f32)); worst "
+           f"matrix {rec['worst_matrix']} at "
+           f"{rec['worst_sigma_ratio']:.3e}" if f64 else ""))
+    if f64:
+        check(rec["err_cuda_vs_f64"]
+              <= 2 * rec["err_static_vs_f64"] + MUON_TOL,
+              f"{label}: {leaf} zolo_cuda {rec['err_cuda_vs_f64']:.3e} "
+              f"from the f64 solve, zolo_static "
+              f"{rec['err_static_vs_f64']:.3e}")
+    if direct:
+        check(err <= MUON_TOL, f"{label}: {leaf} zolo_cuda vs zolo_static "
+              f"{err:.3e}")
+    if on_card:
+        per = zolo_launch_want(len(p_cuda.schedule), 1 + 2 * p_cuda.r)
+        count = math.prod(lead)
+        check(ys["zolo_cuda"]["launches"]["gram"] == count * per["gram"]
+              and ys["zolo_cuda"]["launches"]["grouped_combine"]
+              == count * per["grouped_combine"]
+              and ys["zolo_static"]["launches"]["gram"] == 0
+              and ys["zolo_static"]["launches"]["grouped_combine"] == 0,
+              f"{label}: {leaf} launches {ys}")
+    del q_cuda, q_static, stack
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def muon_kernel_times(torch, device, clock, m_, n_, r, label):
+    """K1 and K2 at one of Muon's tall shapes (m_, n_), each against its
+    plain version (within K1_TOL / K2_TOL_F32 of its max) and timed beside
+    it, one library call and its bound: {"gram/simt": ...,
+    "grouped_combine": ...}."""
+    from repro_torch.kernels import ops, ref
+
+    on_card = device.type == "cuda"
+    reps = 5 if on_card else 2
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((m_, n_), generator=gen, device=device)
+    t = torch.randn((r, m_, n_), generator=gen, device=device)
+    coef = torch.randn((r,), generator=gen, device=device)
+    mhat = torch.tensor(0.987, device=device)
+    g_err = float((ops.gram(x) - ref.gram_ref(x)).abs().amax()
+                  / ref.gram_ref(x).abs().amax())
+    c_err = float((ops.polar_update(x, t, coef, mhat)
+                   - ref.polar_update_ref(x, t, coef, mhat)).abs().amax()
+                  / ref.polar_update_ref(x, t, coef, mhat).abs().amax())
+    check(g_err <= K1_TOL and c_err <= K2_TOL_F32,
+          f"{label} ({m_}, {n_}): K1 {g_err:.3e} K2 {c_err:.3e} against the "
+          "plain versions")
+    k1 = dict(k1_f32_times(clock, x, reps), max_rel_err=g_err)
+    say(f"K1 simt {k1['shape']}: kernel {k1['ms']:.3f} ms, plain "
+        f"{k1['plain_ms']:.3f} ms, library {fmt_ms(k1['library_ms'])}, "
+        f"bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}); max error / "
+        f"max|G| {g_err:.3e}")
+    k2 = dict(k2_f32_times(torch, clock, x, t, coef, mhat, reps),
+              max_rel_err=c_err)
+    return {"gram/simt": k1, "grouped_combine": k2}
+
+
 def phase_train(torch, device, clock, sizes):
     """Phase 19: the LM training path of ``repro_torch`` with ZoloMuon.
 
@@ -3431,11 +3691,9 @@ def phase_train(torch, device, clock, sizes):
     launcher (``repro_torch.launch.train``) on the smoke config, and its
     resume from the checkpoint it saved."""
     import contextlib
-    import dataclasses
     import io
 
     from repro_torch import tree
-    import repro_torch.solver as S
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train as launch_train
     from repro_torch.models import model as M
@@ -3464,9 +3722,7 @@ def phase_train(torch, device, clock, sizes):
            "params": M.param_count(state.params)}
     if on_card:
         rec["state_bytes"] = torch.cuda.memory_allocated()
-    names, flags, _ = tree.flatten_with_names(MU.muon_labels(state.params))
-    shapes = [tuple(p.shape) for p in tree.leaves(state.params)]
-    muon_leaves = [(n, sh) for n, f, sh in zip(names, flags, shapes) if f]
+    names, muon_leaves = muon_leaf_shapes(state.params)
     rec["muon_leaves"] = {n: list(sh) for n, sh in muon_leaves}
     rec["solves_per_step"] = sum(math.prod(sh[:-2]) for _, sh in muon_leaves)
     say(f"{rec['params']:,} parameters, init {rec['init_s']:.3f} s; Muon "
@@ -3513,19 +3769,7 @@ def phase_train(torch, device, clock, sizes):
     for k in ("update_s", "orthogonalize_s", "fwd_bwd_s"):
         rec[k] = sum(t[k] for t in timed) / len(timed)
 
-    # the plans every Muon leaf ran on (cached per kind after step 0)
-    plans = {}
-    for _, sh in muon_leaves:
-        rows, cols = sh[-2:]
-        p = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
-                           muon_cfg.l0, muon_cfg.max_iters,
-                           muon_cfg.polar_dtype, str(device))
-        plans.setdefault((rows, cols), [p, 0])[1] += math.prod(sh[:-2])
-    want = muon_launch_want([tuple(v) for v in plans.values()])
-    rec["plans"] = {f"{k[0]}x{k[1]}": {
-        "method": p.method, "r": p.r, "iterations": len(p.schedule),
-        "canonical": [max(k), min(k)], "solves_per_step": c}
-        for k, (p, c) in plans.items()}
+    plans, want, rec["plans"] = muon_plans(muon_cfg, muon_leaves, device)
     rec["launches_per_step"] = timed[-1]["launches"]
     rec["launches_want"] = want
     say(f"plans {rec['plans']}; K1/K2 a step expected {want['gram']} / "
@@ -3553,80 +3797,18 @@ def phase_train(torch, device, clock, sizes):
     say(f"== phase 19c: {MUON_YARDSTICK}'s Muon update, zolo_cuda against "
         "zolo_static on the same momentum")
     mu = dict(zip(names, tree.leaves(state.opt["mu"])))[MUON_YARDSTICK]
-    lead, (rows, cols) = mu.shape[:-2], mu.shape[-2:]
-    p_cuda = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
-                            muon_cfg.l0, muon_cfg.max_iters,
-                            muon_cfg.polar_dtype, str(device))
-    p_static = S.plan(dataclasses.replace(p_cuda.config,
-                                          method="zolo_static"),
-                      (rows, cols), torch.float32, device=device)
-    stack = mu.reshape((-1, rows, cols))
-    ys = {}
-    for label, p in (("zolo_cuda", p_cuda), ("zolo_static", p_static)):
-        zero_counts(counters)
-        clock.sync()
-        t0 = time.perf_counter()
-        q = p.polar_batched(stack, want_h=False)[0]
-        clock.sync()
-        ys[label] = {"seconds": time.perf_counter() - t0,
-                     "launches": read_counts(counters), "q": q}
-    q_cuda, q_static = ys["zolo_cuda"].pop("q"), ys["zolo_static"].pop("q")
-    err = float((q_cuda - q_static).abs().amax() / q_static.abs().amax())
-    qc = (q_cuda if rows >= cols else q_cuda.mT).double()
-    orth = float(torch.linalg.matrix_norm(qc.mT @ qc - torch.eye(
-        min(rows, cols), dtype=torch.float64, device=device)).amax()
-        / min(rows, cols))
-    del qc
-    rec["yardstick"] = {"leaf": MUON_YARDSTICK, "shape": list(mu.shape),
-                        "max_rel_err": err, "orth": orth, **ys}
-    say(f"{MUON_YARDSTICK} {tuple(mu.shape)}: max|Q_cuda - Q_static| / "
-        f"max|Q| {err:.3e} (tolerance {MUON_TOL:g}), orthogonality "
-        f"{orth:.3e}, zolo_cuda {ys['zolo_cuda']['seconds']:.3f} s (K1 "
-        f"{ys['zolo_cuda']['launches']['gram']} K2 "
-        f"{ys['zolo_cuda']['launches']['grouped_combine']}), zolo_static "
-        f"{ys['zolo_static']['seconds']:.3f} s")
-    check(err <= MUON_TOL, f"19c: zolo_cuda vs zolo_static {err:.3e}")
-    if on_card:
-        per = zolo_launch_want(len(p_cuda.schedule), 1 + 2 * p_cuda.r)
-        count = math.prod(lead)
-        check(ys["zolo_cuda"]["launches"]["gram"] == count * per["gram"]
-              and ys["zolo_cuda"]["launches"]["grouped_combine"]
-              == count * per["grouped_combine"]
-              and ys["zolo_static"]["launches"]["gram"] == 0
-              and ys["zolo_static"]["launches"]["grouped_combine"] == 0,
-              f"19c launches {ys}")
-    del q_cuda, q_static, stack, mu, state, metrics, batch
+    rows, cols = mu.shape[-2:]
+    rec["yardstick"] = muon_yardstick(torch, device, clock, counters,
+                                      muon_cfg, MUON_YARDSTICK, mu, "19c")
+    del mu, state, metrics, batch
     if on_card:
         torch.cuda.empty_cache()
 
     say(f"== phase 19d: K1 and K2 at Muon's tall shape ({max(rows, cols)}, "
         f"{min(rows, cols)})")
-    m_, n_ = max(rows, cols), min(rows, cols)
-    reps = 5 if on_card else 2
-    gen = torch.Generator(device=device).manual_seed(19)
-    x = torch.randn((m_, n_), generator=gen, device=device)
-    r = muon_cfg.r
-    t = torch.randn((r, m_, n_), generator=gen, device=device)
-    coef = torch.randn((r,), generator=gen, device=device)
-    mhat = torch.tensor(0.987, device=device)
-    from repro_torch.kernels import ops, ref
-
-    g_err = float((ops.gram(x) - ref.gram_ref(x)).abs().amax()
-                  / ref.gram_ref(x).abs().amax())
-    c_err = float((ops.polar_update(x, t, coef, mhat)
-                   - ref.polar_update_ref(x, t, coef, mhat)).abs().amax()
-                  / ref.polar_update_ref(x, t, coef, mhat).abs().amax())
-    check(g_err <= K1_TOL and c_err <= K2_TOL_F32,
-          f"19d: K1 {g_err:.3e} K2 {c_err:.3e} against the plain versions")
-    k1 = dict(k1_f32_times(clock, x, reps), max_rel_err=g_err)
-    say(f"K1 simt {k1['shape']}: kernel {k1['ms']:.3f} ms, plain "
-        f"{k1['plain_ms']:.3f} ms, library {fmt_ms(k1['library_ms'])}, "
-        f"bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}); max error / "
-        f"max|G| {g_err:.3e}")
-    k2 = dict(k2_f32_times(torch, clock, x, t, coef, mhat, reps),
-              max_rel_err=c_err)
-    rec["kernel_times"] = {"gram/simt": k1, "grouped_combine": k2}
-    del x, t
+    rec["kernel_times"] = muon_kernel_times(
+        torch, device, clock, max(rows, cols), min(rows, cols), muon_cfg.r,
+        "19d")
 
     say(f"== phase 19e: the launcher on the {TRAIN_ARCH} smoke config, "
         f"{LAUNCH_STEPS[0]} steps, then a resume to {LAUNCH_STEPS[1]}")
@@ -3676,6 +3858,382 @@ def phase_train(torch, device, clock, sizes):
     return rec
 
 
+class ServeProbe:
+    """Times a ``ServeEngine``'s prefill and each decode step of one
+    ``generate`` call (CUDA events, read once after it; the host clock in
+    a CPU rehearsal) and keeps their logits, by wrapping the engine's
+    ``_prefill`` and ``_decode`` while entered."""
+
+    def __init__(self, torch, engine, keep_logits=True):
+        self.torch, self.engine, self.keep = torch, engine, keep_logits
+        self.marks, self.logits = [], []
+
+    def _mark(self):
+        if self.torch.cuda.is_available():
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _wrap(self, fn):
+        def run(*args):
+            t0 = self._mark()
+            logits, caches = fn(*args)
+            self.marks.append((t0, self._mark()))
+            if self.keep:
+                self.logits.append(logits)
+            return logits, caches
+        return run
+
+    def __enter__(self):
+        self.real = (self.engine._prefill, self.engine._decode)
+        self.engine._prefill = self._wrap(self.real[0])
+        self.engine._decode = self._wrap(self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._prefill, self.engine._decode = self.real
+        return False
+
+    def ms(self):
+        """[prefill ms, decode ms of each step]"""
+        out = []
+        for t0, t1 in self.marks:
+            out.append(t0.elapsed_time(t1) if hasattr(t0, "elapsed_time")
+                       else (t1 - t0) * 1e3)
+        return out
+
+
+def decode_bound_ms(cfg, params, caches, batch):
+    """The least time of one decode step at PEAK_BYTES, and its bytes:
+    every weight it uses read once (the embedding's ``batch`` rows when
+    untied; an MoE layer's experts scaled by the most ``batch`` tokens can
+    route to, min(E, batch k) of E), the cache read once (a ring's valid
+    slots only, min(pos, w) of w, at the step's ``pos``) and what changes
+    in it written once (one ring slot; the SSD and RG-LRU states whole)."""
+    from repro_torch import tree
+
+    pos = int(caches["pos"])
+    weights = 0
+    for name, t in zip(*tree.flatten_with_names(params)[:2]):
+        nbytes = t.numel() * t.element_size()
+        keys = name.split("/")
+        if name == "embed" and not cfg.tie_embeddings:
+            nbytes = batch * t.shape[-1] * t.element_size()
+        elif cfg.num_experts and keys[-2:-1] == ["mlp"] \
+                and keys[-1] != "router":
+            nbytes *= min(cfg.num_experts,
+                          batch * cfg.moe_top_k) / cfg.num_experts
+        weights += nbytes
+    cache = 0
+    for name, t in zip(*tree.flatten_with_names(caches)[:2]):
+        if name == "pos":
+            continue
+        nbytes = t.numel() * t.element_size()
+        if name.split("/")[-1] in ("k", "v"):  # a ring, (..., b, w, kv, d)
+            w = t.shape[-3]
+            cache += nbytes * (min(pos, w) + 1) / w
+        else:
+            cache += 2 * nbytes
+    total = weights + cache
+    return total / PEAK_BYTES * 1e3, total
+
+
+def layer_cache_bytes(cfg, caches):
+    """The bytes of the largest one layer's decode cache."""
+    from repro_torch import tree
+
+    def nbytes(c):
+        return sum(t.numel() * t.element_size() for t in tree.leaves(c))
+
+    return max([nbytes(c) // cfg.num_stages for c in caches["stages"]]
+               + [nbytes(c) for c in caches["rem"]])
+
+
+def serve_lm_case(torch, device, clock, counters, cfg, case, label):
+    """One arch through ``ServeEngine.generate`` (greedy) at full width:
+    prefill seconds, decode ms a token (median), tokens/s, cache and peak
+    memory, launches of the path (K1-K4 must stay 0), the synchronising
+    calls of one decode step (must be 0) and the memory it allocates
+    beyond the caches (at most one layer's cache and DECODE_SLACK, so it
+    does not grow with depth); then the decode logits against
+    ``hidden_states`` -> ``lm_head`` over the prompt plus the generated
+    tokens, and the greedy tokens against that forward's argmax wherever
+    its top-2 gap exceeds the tolerance.  An MoE config is served with a
+    capacity factor of num_experts / top_k, so that no token is dropped
+    and the forward's b s tokens route as decode's b at a time do."""
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    on_card = device.type == "cuda"
+    b, s, gen = case["batch"], case["prompt"], case["gen"]
+    if cfg.num_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    gen_ = torch.Generator(device=device).manual_seed(20)
+    params = M.init_params(cfg, gen_)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen_,
+                           device=device, dtype=torch.int32)
+    eng = ServeEngine(cfg, params, max_len=case["max_len"])
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "pattern": list(cfg.block_pattern), "batch": b, "prompt": s,
+           "gen": gen, "max_len": case["max_len"],
+           "capacity_factor": cfg.capacity_factor if cfg.num_experts
+           else None, "params": M.param_count(params)}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with ServeProbe(torch, eng) as probe:
+        zero_counts(counters)
+        clock.sync()
+        t0 = time.perf_counter()
+        toks, caches = eng.generate({"tokens": prompt}, steps=gen)
+        host = toks.cpu()  # the one read back
+        secs = time.perf_counter() - t0
+        rec["launches"] = read_counts(counters)
+    ms = probe.ms()
+    decode_ms = sorted(ms[1:])
+    rec.update({
+        "generate_s": secs, "prefill_s": ms[0] / 1e3,
+        "decode_ms_median": decode_ms[len(decode_ms) // 2]
+        if decode_ms else None,
+        "decode_ms_min": decode_ms[0] if decode_ms else None,
+        "decode_ms_max": decode_ms[-1] if decode_ms else None,
+        "tokens_per_s": b * gen / secs,
+        "decode_tokens_per_s": b * len(decode_ms) / (sum(decode_ms) / 1e3)
+        if decode_ms else None,
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in tree.leaves(caches)),
+        "peak_bytes": torch.cuda.max_memory_allocated() - base
+        if on_card else None})
+    rec["decode_bound_ms"], rec["decode_bound_bytes"] = decode_bound_ms(
+        cfg, params, caches, b)
+    check(host.shape == (b, gen) and int(host.min()) >= 0
+          and int(host.max()) < cfg.vocab_size,
+          f"{label}: tokens {tuple(host.shape)} out of range")
+    logits = torch.stack([lg.float() for lg in probe.logits], dim=1)
+    check(bool(torch.isfinite(logits).all()),
+          f"{label}: logits not finite")
+    # the greedy tokens are the argmax of the logits they were drawn from
+    check(torch.equal(logits[..., :cfg.vocab_size].argmax(-1).int().cpu(),
+                      host), f"{label}: greedy tokens are not the "
+          f"argmax of their logits")
+    if on_card:
+        kernels_off = all(v == 0 for v in rec["launches"].values())
+        check(kernels_off, f"{label}: serving launched "
+              f"{rec['launches']}, expected no K1-K4")
+
+    # the synchronising calls of one decode step, and what it allocates
+    # beyond the caches it writes in place
+    nxt = toks[:, -1:]
+    rec["layer_cache_bytes"] = layer_cache_bytes(cfg, caches)
+    if on_card:
+        clock.sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _, rec["decode_step_syncs"], rec["decode_step_sync_sites"] = \
+            sync_sites(torch, lambda: eng._decode(params, nxt, caches))
+        clock.sync()
+        rec["decode_step_transient_bytes"] = \
+            torch.cuda.max_memory_allocated() - held
+        check(rec["decode_step_syncs"] == 0, f"{label}: "
+              f"{rec['decode_step_syncs']} synchronising calls in a decode "
+              f"step {rec['decode_step_sync_sites']}")
+        limit = rec["layer_cache_bytes"] + DECODE_SLACK
+        check(rec["decode_step_transient_bytes"] <= limit, f"{label}: a "
+              f"decode step allocates {rec['decode_step_transient_bytes']}"
+              f" bytes beyond its caches, above one layer's cache + slack "
+              f"{limit}")
+    else:
+        rec["decode_step_syncs"], rec["decode_step_sync_sites"] = None, {}
+        rec["decode_step_transient_bytes"] = None
+    del caches, probe
+
+    # the forward over prompt + all generated tokens but the last,
+    # projected at the decode positions only
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    with torch.no_grad():
+        x, _ = M.hidden_states(params, {"tokens": full}, cfg)
+        want = M.lm_head(params, x[:, s - 1:], cfg).float()
+    del x
+    scale = float(want.abs().amax())
+    err = float((want - logits).abs().amax()) / scale
+    top2 = want[..., :cfg.vocab_size].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > SERVE_LM_TOL * scale
+    agree = want[..., :cfg.vocab_size].argmax(-1).int() == toks
+    rec.update({"forward_max_rel_err": err,
+                "greedy_clear_positions": int(clear.sum()),
+                "greedy_agree_where_clear": int((agree & clear).sum()),
+                "greedy_agree_all": int(agree.sum())})
+    check(err <= SERVE_LM_TOL, f"{label}: decode logits against the "
+          f"forward {err:.3e} > {SERVE_LM_TOL}")
+    check(bool(agree[clear].all()), f"{label}: greedy tokens differ "
+          f"from the forward's argmax at {int((clear & ~agree).sum())}"
+          f" clear positions")
+    del want, params, toks, logits
+    if on_card:
+        torch.cuda.empty_cache()
+    say(f"{label} {cfg.name} ({cfg.num_layers} layers {cfg.block_pattern}, "
+        f"{rec['params']:,} parameters), b {b}, prompt {s}, {gen} tokens, "
+        f"max_len {case['max_len']}: prefill {rec['prefill_s']:.3f} s, "
+        f"decode {fmt_ms(rec['decode_ms_median'])} a token (median; "
+        f"{fmt_ms(rec['decode_ms_min'])} to {fmt_ms(rec['decode_ms_max'])}"
+        f"; bound {fmt_ms(rec['decode_bound_ms'])} for "
+        f"{rec['decode_bound_bytes'] / 1e9:.3f} GB), "
+        f"generate {secs:.3f} s = {rec['tokens_per_s']:.1f} tokens/s "
+        f"(decode alone {rec['decode_tokens_per_s']:.1f}), cache "
+        f"{rec['cache_bytes'] / 2**30:.3f} GiB, peak "
+        + ("not measured" if rec["peak_bytes"] is None
+           else f"{rec['peak_bytes'] / 2**30:.2f} GiB")
+        + f"; syncs in a decode step {rec['decode_step_syncs']}, its "
+        f"transient memory "
+        + ("not measured" if rec["decode_step_transient_bytes"] is None
+           else f"{rec['decode_step_transient_bytes'] / 2**20:.1f} MiB")
+        + f" (one layer's cache {rec['layer_cache_bytes'] / 2**20:.1f} MiB)"
+        f"; against the forward {rec['forward_max_rel_err']:.3e} "
+        f"(tolerance {SERVE_LM_TOL:g}), greedy = forward argmax at "
+        f"{rec['greedy_agree_where_clear']}/{rec['greedy_clear_positions']}"
+        f" clear positions ({rec['greedy_agree_all']}/{b * gen} in all)"
+        + (f", capacity factor {cfg.capacity_factor:g}"
+           if cfg.num_experts else "")
+        + f"; launches {rec['launches']}")
+    return rec
+
+
+def train_lm_case(torch, device, clock, counters, cfg, case, label):
+    """``make_train_step`` with ZoloMuon on one arch at full width: one
+    warm step and ``case["steps"]`` timed ones, seconds, tokens/s, the
+    share in ``orthogonalize``, peak memory, and the K1/K2 launches of
+    every timed step, which must equal the Muon plans' count; then the
+    ``case["yardsticks"]`` leaves' updates on zolo_cuda against
+    zolo_static (:func:`muon_yardstick`), and K1/K2 at each Muon shape
+    against their plain versions (:func:`muon_kernel_times`)."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import muon as MU
+    from repro_torch.train import step as TS
+
+    on_card = device.type == "cuda"
+    b, s = case["batch"], case["seq"]
+    muon_cfg = MU.MuonConfig()
+    init_fn, step_fn = TS.make_train_step(cfg, muon_cfg, total_steps=100,
+                                          warmup=1)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    names, muon_leaves = muon_leaf_shapes(state.params)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+           "seq": s, "params": M.param_count(state.params),
+           "muon_leaves": {n: list(sh) for n, sh in muon_leaves},
+           "solves_per_step": sum(math.prod(sh[:-2])
+                                  for _, sh in muon_leaves)}
+    data = SyntheticLM(cfg.vocab_size, s, b, dtype=cfg.dtype,
+                       device=str(device))
+    steps = []
+    for i in range(1 + case["steps"]):
+        batch = data.batch_at(i)
+        with TrainProbe(clock) as probe:
+            zero_counts(counters)
+            clock.sync()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            clock.sync()
+            secs = time.perf_counter() - t0
+            launches = read_counts(counters)
+        m = {k: float(v) for k, v in metrics.items()}
+        steps.append({"step": i, "seconds": secs, "update_s": probe.update_s,
+                      "orthogonalize_s": probe.orth_s,
+                      "fwd_bwd_s": secs - probe.update_s,
+                      "launches": launches, **m})
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{label}: step {i} loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+        say(f"{label} {'warm' if i == 0 else 'timed'} step {i}: {secs:.3f} s"
+            f" (forward+backward {secs - probe.update_s:.3f}, update "
+            f"{probe.update_s:.3f} of which orthogonalize {probe.orth_s:.3f})"
+            f", loss {m['loss']:.5f}, aux {m['aux_loss']:.5f}, K1 "
+            f"{launches['gram']} K2 {launches['grouped_combine']}")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
+        else None
+    rec["steps"] = steps
+    timed = steps[1:]
+    rec["step_s"] = sum(t["seconds"] for t in timed) / len(timed)
+    rec["tokens_per_s"] = b * s / rec["step_s"]
+    for k in ("update_s", "orthogonalize_s", "fwd_bwd_s"):
+        rec[k] = sum(t[k] for t in timed) / len(timed)
+    rec["orthogonalize_share"] = rec["orthogonalize_s"] / rec["step_s"]
+    plans, want, rec["plans"] = muon_plans(muon_cfg, muon_leaves, device)
+    rec["launches_per_step"] = timed[-1]["launches"]
+    rec["launches_want"] = want
+    check(all(p.method == "zolo_cuda" for p, _ in plans.values()),
+          f"{label}: Muon plans {rec['plans']}")
+    if on_card:
+        for t in timed:
+            check(t["launches"] == want, f"{label}: step {t['step']} "
+                  f"launched {t['launches']}, expected {want}")
+    del metrics, batch
+    mus = dict(zip(names, tree.leaves(state.opt["mu"])))
+    labelled = {n for n, _ in muon_leaves}
+    sticks = [n for n in case.get("yardsticks", ()) if n in labelled]
+    if on_card:  # the smoke configs of a rehearsal lack some of them
+        check(len(sticks) == len(case.get("yardsticks", ())),
+              f"{label}: yardsticks {case.get('yardsticks')} not all Muon "
+              f"leaves {sorted(labelled)}")
+    rec["yardsticks"] = [muon_yardstick(torch, device, clock, counters,
+                                        muon_cfg, n, mus[n], label, f64=True)
+                         for n in sticks]
+    del mus, state
+    rec["kernel_times"] = {
+        f"{m_}x{n_}": muon_kernel_times(torch, device, clock, m_, n_,
+                                        muon_cfg.r, label)
+        for m_, n_ in sorted({(max(k), min(k)) for k in plans},
+                             reverse=True)}
+    if on_card:
+        torch.cuda.empty_cache()
+    say(f"{label} {cfg.name} ({cfg.num_layers} layers, {rec['params']:,} "
+        f"parameters), batch {b} x {s}: {rec['step_s']:.3f} s a step, "
+        f"{rec['tokens_per_s']:.1f} tokens/s, orthogonalize "
+        f"{rec['orthogonalize_s']:.3f} s ({100 * rec['orthogonalize_share']:.1f}%"
+        f" of the step), {rec['solves_per_step']} polar solves a step over "
+        f"{len(plans)} plans {rec['plans']}; K1/K2 a step "
+        f"{rec['launches_per_step']['gram']} / "
+        f"{rec['launches_per_step']['grouped_combine']} (expected "
+        f"{want['gram']} / {want['grouped_combine']}), peak "
+        + ("not measured" if rec["peak_bytes"] is None
+           else f"{rec['peak_bytes'] / 2**30:.2f} GiB"))
+    return rec
+
+
+def phase_serve_lm(torch, device, clock, cases):
+    """Phase 20: LM serving through ``ServeEngine`` and the MoE, SSD and
+    RG-LRU families, at full width (each config's depth cut as
+    ``cases`` says): (a) qwen3-8b serving, (b) recurrentgemma-2b serving
+    after a prompt longer than its window and not a multiple of it, (c)
+    mamba2-130m serving and training, (d) moonshot-v1-16b-a3b training
+    (Muon on the expert stacks) and serving."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    counters = kernel_modules()
+    out = {}
+    for label, case in cases.items():
+        cfg = dataclasses.replace(case["cfg"], num_layers=case["layers"])
+        for part in case["parts"]:
+            say(f"== phase {label}: {part} {cfg.name} at full width "
+                f"({case['cfg'].num_layers} layers cut to {cfg.num_layers})")
+            if part == "serve":
+                out[f"{label}_serve"] = serve_lm_case(
+                    torch, device, clock, counters, cfg, case["serve"], label)
+            else:
+                out[f"{label}_train"] = train_lm_case(
+                    torch, device, clock, counters, cfg, case["train"], label)
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 20 ({out['seconds']:.1f} s)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -3715,6 +4273,8 @@ def main(argv=None) -> int:
                  "fault_n": SERVE_FAULT_N}
         train_cfg, train_b, train_s = CFG.get_config(TRAIN_ARCH), \
             TRAIN_BATCH, TRAIN_SEQ
+        serve_lm = {k: dict(v, cfg=CFG.get_config(v["arch"]))
+                    for k, v in SERVE_LM.items()}
     else:
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
@@ -3726,6 +4286,13 @@ def main(argv=None) -> int:
                  "topk": 8, "topk_n": 96, "fault_n": 48}
         train_cfg, train_b, train_s = CFG.get_smoke_config(TRAIN_ARCH), 2, \
             64
+        serve_lm = {}
+        for k, v in SERVE_LM.items():
+            small = SERVE_LM_REHEARSAL[k]
+            serve_lm[k] = dict(v, cfg=CFG.get_smoke_config(v["arch"]),
+                               layers=small["layers"])
+            for part in v["parts"]:
+                serve_lm[k][part] = dict(v[part], **small[part])
     train = {"cfg": dataclasses.replace(train_cfg, num_layers=TRAIN_LAYERS),
              "batch": train_b, "seq": train_s, "steps": TRAIN_STEPS}
     clock = Clock(torch, device)
@@ -3774,7 +4341,15 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     record["train"] = train_rec = phase_train(torch, device, clock, train)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    record["serve_lm"] = lm_rec = phase_serve_lm(torch, device, clock,
+                                                 serve_lm)
     record["seconds"] = time.perf_counter() - t_start
+
+    def muon_row(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "shape", "max_rel_err")}
 
     kernels = []
     sources = {"gram": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -3828,6 +4403,12 @@ def main(argv=None) -> int:
     solves.update({f"train_step_{TRAIN_ARCH}":
                        train_rec["launches_per_step"],
                    "launch_train_smoke": train_rec["launcher"]["launches"]})
+    # phase 20: each generate call, and one timed train step
+    for key, r_ in lm_rec.items():
+        if key.endswith("_serve"):
+            solves[f"serve_{r_['arch']}"] = r_["launches"]
+        elif key.endswith("_train"):
+            solves[f"train_step_{r_['arch']}"] = r_["launches_per_step"]
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],
@@ -3864,10 +4445,12 @@ def main(argv=None) -> int:
             rec["aligned"] = {k: aligned[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "shape")}
         if key in train_rec["kernel_times"]:
-            rec["muon_shape"] = {k: train_rec["kernel_times"][key][k] for k
-                                 in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms", "shape",
-                                     "max_rel_err")}
+            rec["muon_shape"] = muon_row(train_rec["kernel_times"][key])
+            # phase 20's training cases, each of their Muon shapes
+            rec["muon_shapes_20"] = {
+                f"{r_['arch']} {shape}": muon_row(kt[key])
+                for k_, r_ in lm_rec.items() if k_.endswith("_train")
+                for shape, kt in r_["kernel_times"].items()}
         kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

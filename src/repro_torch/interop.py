@@ -10,7 +10,9 @@ of its arrays give), so the port and the JAX reference compute the same
 thing on the same input.  A model's state is its params pytree:
 :func:`model_params_from_numpy` takes the reference's (as numpy arrays)
 into the port's nested dict of tensors, name for name, and
-:func:`tree_to_numpy` goes back.  Nothing of ``repro`` is imported here.
+:func:`tree_to_numpy` goes back; :func:`caches_from_numpy` and
+:func:`caches_to_numpy` do the same for a served model's decode caches.
+Nothing of ``repro`` is imported here.
 """
 
 from __future__ import annotations
@@ -118,33 +120,56 @@ def with_draws(p: TopKPlan, **arrays) -> TopKPlan:
     return dataclasses.replace(p, draws=draws)
 
 
+def _mixer_layout(kind: str, cfg) -> dict:
+    """{leaf name: shape} of one mixer's parameters (no stacked axis)."""
+    d = cfg.d_model
+    if kind == "attn":
+        out = {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
+               "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d)}
+        if cfg.qk_norm:
+            out["q_scale"] = out["k_scale"] = (cfg.head_dim,)
+        return out
+    if kind == "rglru":
+        dr = cfg.rnn_width
+        return {"in_x": (d, dr), "in_gate": (d, dr),
+                "conv_w": (cfg.conv_width, dr), "w_a": (dr, dr),
+                "w_i": (dr, dr), "lam": (dr,), "out_proj": (dr, d)}
+    if kind == "ssd":
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        return {"in_proj": (d, 2 * di + 2 * n + h),
+                "conv_w": (cfg.conv_width, di + 2 * n), "a_log": (h,),
+                "d_skip": (h,), "dt_bias": (h,), "norm_scale": (di,),
+                "out_proj": (di, d)}
+    raise ValueError(kind)
+
+
+def _mlp_layout(cfg) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.num_experts:
+        e = cfg.num_experts
+        return {"router": (d, e), "wi_gate": (e, d, ff),
+                "wi_up": (e, d, ff), "wo": (e, ff, d)}
+    ins = ("wi_gate", "wi_up") if cfg.mlp_type == "swiglu" else ("wi",)
+    return dict({w: (d, ff) for w in ins}, wo=(ff, d))
+
+
 def _params_layout(cfg) -> dict:
     """{leaf name: shape} of ``repro.models.model.init_params(cfg, ...)``
-    for an attention-only dense config (the port's layout is the same)."""
-    from repro_torch.models import model as _model
-
-    _model.check_supported(cfg)
+    (the port's layout is the same)."""
     d, v, ns = cfg.d_model, cfg.vocab_padded, cfg.num_stages
     norms = cfg.norm_type != "nonparam_ln"
 
-    def layer(prefix, lead):
+    def layer(prefix, kind, lead):
         out = {}
         if norms:
             out["norm1"] = lead + (d,)
-        out["mixer/wq"] = lead + (d, cfg.q_dim)
-        out["mixer/wk"] = lead + (d, cfg.kv_dim)
-        out["mixer/wv"] = lead + (d, cfg.kv_dim)
-        out["mixer/wo"] = lead + (cfg.q_dim, d)
-        if cfg.qk_norm:
-            out["mixer/q_scale"] = lead + (cfg.head_dim,)
-            out["mixer/k_scale"] = lead + (cfg.head_dim,)
+        out.update({f"mixer/{k}": lead + sh
+                    for k, sh in _mixer_layout(kind, cfg).items()})
         if cfg.mlp_type != "none":
             if norms:
                 out["norm2"] = lead + (d,)
-            ins = ("wi_gate", "wi_up") if cfg.mlp_type == "swiglu" \
-                else ("wi",)
-            out.update({f"mlp/{w}": lead + (d, cfg.d_ff) for w in ins})
-            out["mlp/wo"] = lead + (cfg.d_ff, d)
+            out.update({f"mlp/{k}": lead + sh
+                        for k, sh in _mlp_layout(cfg).items()})
         return {f"{prefix}/{k}": s for k, s in out.items()}
 
     want = {"embed": (v, d)}
@@ -152,10 +177,10 @@ def _params_layout(cfg) -> dict:
         want["final_norm"] = (d,)
     if not cfg.tie_embeddings:
         want["lm_head"] = (d, v)
-    for j in range(len(cfg.block_pattern)):
-        want.update(layer(f"stages/{j}", (ns,)))
-    for i in range(len(cfg.remainder_blocks)):
-        want.update(layer(f"rem/{i}", ()))
+    for j, kind in enumerate(cfg.block_pattern):
+        want.update(layer(f"stages/{j}", kind, (ns,)))
+    for i, kind in enumerate(cfg.remainder_blocks):
+        want.update(layer(f"rem/{i}", kind, ()))
     return want
 
 
@@ -205,3 +230,31 @@ def model_params_from_numpy(tree, cfg, device="cpu"):
         raise ValueError(f"params tree does not match the {cfg.name!r} "
                          f"layout: {diff[:8]}")
     return params
+
+
+def caches_from_numpy(tree, cfg, batch: int, max_len: int, device="cpu"):
+    """The port's decode caches from the reference's (``jax.tree.map(
+    numpy.asarray, caches)`` of ``init_caches``/``prefill``/
+    ``decode_step``), leaf for leaf, in the layout of
+    ``init_caches(cfg, batch, max_len)``; raises on another layout.
+    bf16 leaves may come as bf16 or f32 (:func:`caches_to_numpy`'s
+    form): each leaf takes the dtype ``init_caches`` gives it."""
+    from repro_torch import tree as _tree
+    from repro_torch.models import model as _model
+
+    want = _model.init_caches(cfg, batch, max_len, device="meta")
+    names, leaves, tdef = _tree.flatten_with_names(tree_from_numpy(tree))
+    w_names, w_leaves, w_def = _tree.flatten_with_names(want)
+    got = [(n, tuple(t.shape)) for n, t in zip(names, leaves)]
+    need = [(n, tuple(t.shape)) for n, t in zip(w_names, w_leaves)]
+    if got != need:
+        diff = sorted(set(got) ^ set(need))
+        raise ValueError(f"caches tree does not match the {cfg.name!r} "
+                         f"layout at batch {batch}, max_len {max_len}: "
+                         f"{diff[:8]}")
+    return _tree.unflatten(w_def, [t.to(device=device, dtype=w.dtype)
+                                   for t, w in zip(leaves, w_leaves)])
+
+
+# the port's decode caches as the reference's tree of numpy arrays
+caches_to_numpy = tree_to_numpy

@@ -7,9 +7,6 @@ config, which runs on the CPU.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
       --smoke --steps 20 --batch 4 --seq 64 --ckpt-dir /tmp/ckpt \
       --device cpu
-
-Only attention-only dense architectures are ported (the others raise
-NotImplementedError).
 """
 
 from __future__ import annotations

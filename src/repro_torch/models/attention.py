@@ -1,13 +1,21 @@
-"""GQA attention, the train/prefill half: chunked online-softmax attention.
+"""GQA attention: chunked online-softmax train/prefill, ring-buffer decode.
 
-Port of ``repro/models/attention.py:27-159``.  The reference's blocked
+Port of ``repro/models/attention.py``.  The reference's blocked
 attention is written in torch ops with the same chunking, so autograd
 gives its gradient: the outer loop over query chunks is unrolled with
 static causal (and sliding-window) key ranges per chunk, the inner loop
 over key chunks carries the running (max, sum, acc).  The score and PV
 products run in f32, as the reference's ``preferred_element_type=f32``
 einsums do on bf16 operands: the operands are upcast (exact) before the
-product.  Decode (the ring-buffer KV cache) is not ported yet.
+product.
+
+Decode uses a ring-buffer cache of capacity min(context, window): slot
+``j`` at step ``pos`` holds absolute position ``pos - ((pos - j) % w)``,
+so position p lives in slot p % w.  RoPE is applied to keys at write
+time.  The decode step writes its slot with a device index and reads
+nothing back to the host.  Unlike the reference, a prefilled prompt of
+s >= w tokens is rolled into place (slot p % w), so the ring agrees with
+:func:`cache_positions` for every s, not only for multiples of w.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from repro_torch.models import layers as L
 
 F32 = torch.float32
 NEG = -1e30
+# ring slots a decode step upcasts to f32 at a time (the reference's
+# einsum takes f32 products of the bf16 ring without a copy)
+DECODE_CHUNK = 4096
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -138,3 +149,70 @@ def attn_forward(params, x, positions, cfg, *, q_chunk=1024, kv_chunk=1024):
                           kv_chunk=kv_chunk)
     out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
     return out @ params["wo"], (k, v)
+
+
+def cache_capacity(cfg, max_len: int) -> int:
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    w = cache_capacity(cfg, max_len)
+    shape = (batch, w, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_positions(pos, w: int):
+    """Absolute position stored in each ring slot at step ``pos`` (an
+    integer tensor on the cache's device)."""
+    slots = torch.arange(w, dtype=pos.dtype, device=pos.device)
+    return pos - torch.remainder(pos - slots, w)
+
+
+def attn_fill_cache(cache, k, v, start_pos: int):
+    """Write a prefilled [start, start+s) segment into the ring cache."""
+    w = cache["k"].shape[1]
+    s = k.shape[1]
+    if s >= w:
+        # position p goes to slot p % w: the last w keys, rolled by s % w
+        return {"k": torch.roll(k[:, -w:], s % w, dims=1),
+                "v": torch.roll(v[:, -w:], s % w, dims=1)}
+    # assumes start_pos == 0 for prefill (suffix write); the start is
+    # clamped so the segment fits, as dynamic_update_slice clamps it
+    lo = min(start_pos % w, w - s)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[:, lo:lo + s] = k
+    cv[:, lo:lo + s] = v
+    return {"k": ck, "v": cv}
+
+
+def attn_decode(params, x, pos, cache, cfg):
+    """One-token decode.  x: (b, 1, d); pos: 0-d int32 tensor (the
+    current index) on x's device.  Writes the new slot into ``cache`` in
+    place; the scores and the PV product take the ring DECODE_CHUNK slots
+    at a time, so no f32 copy of the whole ring is made.
+
+    Returns (out (b, 1, d), cache)."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    w = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(params, x, pos.reshape(1), cfg)
+    slot = torch.remainder(pos, w).reshape(1).long()
+    ck = cache["k"].index_copy_(1, slot, k_new)
+    cv = cache["v"].index_copy_(1, slot, v_new)
+    kpos = cache_positions(pos, w)  # (w,)
+    valid = kpos >= 0
+    if cfg.window:
+        valid = valid & (kpos > pos - cfg.window)
+    q = q.to(F32)
+    chunks = range(0, w, DECODE_CHUNK)
+    s = torch.cat([torch.einsum("bqhgd,bkhd->bhgqk", q,
+                                ck[:, i:i + DECODE_CHUNK].to(F32))
+                   for i in chunks], dim=-1) / math.sqrt(hd)
+    s = torch.where(valid, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    o = sum(torch.einsum("bhgqk,bkhd->bqhgd", p[..., i:i + DECODE_CHUNK],
+                         cv[:, i:i + DECODE_CHUNK].to(F32))
+            for i in chunks)
+    o = o.reshape(b, 1, cfg.q_dim).to(x.dtype)
+    return o @ params["wo"], cache

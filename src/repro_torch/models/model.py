@@ -1,6 +1,6 @@
-"""Public model API: init / forward over the full stack.
+"""Public model API: init / forward / prefill / decode over the full stack.
 
-Port of ``repro/models/model.py`` (the training half).  Params layout, as
+Port of ``repro/models/model.py``.  Params layout, as
 in the reference (``model.py:26-45``)::
 
     {"embed":      (vocab_padded, d),
@@ -15,6 +15,16 @@ axis and checkpoints carry across.  Stages run in a Python loop; with
 ``cfg.remat`` each stage runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` with ``nothing_saveable``): only the stage
 inputs are kept and the stage is recomputed in the backward pass.
+
+Serving (:func:`init_caches`, :func:`prefill`, :func:`decode_step`)
+keeps the reference's cache tree — ``{"stages": per-layer caches stacked
+over num_stages, "rem": tuple, "pos": int32}`` — with ``pos`` a 0-d
+tensor on the device; the reference's ``vmap`` and ``scan`` over stages
+are loops over the stacked leading axis.  :func:`decode_step` is
+functional, as the reference's; :func:`decode_step_`, which the serving
+engine runs, writes the new ring slot and states into the caches in
+place, so a step copies no cache.  Neither reads anything back to the
+host.
 """
 
 from __future__ import annotations
@@ -27,13 +37,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 F32 = torch.float32
-
-
-def check_supported(cfg) -> None:
-    """Raise :class:`NotImplementedError` unless every block of ``cfg``
-    is an attention block with a dense MLP."""
-    for kind in cfg.block_pattern:
-        T.check_supported(cfg, kind)
 
 
 def init_params(cfg, gen: torch.Generator):
@@ -121,6 +124,91 @@ def hidden_states(params, batch, cfg):
     x = _embed_inputs(params, batch, cfg)
     x, _, aux = backbone(params, x, _positions(x), cfg)
     return x, aux
+
+
+# --- serving ---------------------------------------------------------------
+
+
+def _stage(tree_, i):
+    return _tree.map(lambda t: t[i], tree_)
+
+
+def init_caches(cfg, batch: int, max_len: int, device=None):
+    """Zeroed decode caches (the reference's tree) on ``device`` (the
+    card when None); ``pos`` a 0-d int32 tensor."""
+    from repro_torch.solver import resolve_device
+
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    one_stage = tuple(T.init_layer_cache(kind, cfg, batch, max_len, dtype,
+                                         dev)
+                      for kind in cfg.block_pattern)
+    rem = tuple(T.init_layer_cache(kind, cfg, batch, max_len, dtype, dev)
+                for kind in cfg.remainder_blocks)
+    return {"stages": _tree.map(
+                lambda t: t.new_zeros((cfg.num_stages,) + t.shape),
+                one_stage),
+            "rem": rem,
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _copy_into(dst, src):
+    _tree.map(lambda d, s: d.copy_(s), dst, src)
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg, max_len: int):
+    """Run the prompt through the backbone and build decode caches.
+
+    The caches are allocated once, at their stacked size, and each
+    layer's prompt cache is written into its stage's slice.  Returns
+    (last_token_logits (b, vocab_padded), caches)."""
+    dtype = getattr(torch, cfg.dtype)
+    x = _embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    x, (stage_mixer_caches, rem_mixer), _ = backbone(
+        params, x, _positions(x), cfg)
+    caches = init_caches(cfg, b, max_len, x.device)
+    for i in range(cfg.num_stages):
+        for kind, mc, dst in zip(cfg.block_pattern,
+                                 _stage(stage_mixer_caches, i),
+                                 _stage(caches["stages"], i)):
+            _copy_into(dst, T.prefill_layer_cache(kind, cfg, max_len, mc,
+                                                  dtype))
+    for kind, mc, dst in zip(cfg.remainder_blocks, rem_mixer,
+                             caches["rem"]):
+        _copy_into(dst, T.prefill_layer_cache(kind, cfg, max_len, mc, dtype))
+    caches["pos"].fill_(s)
+    return lm_head(params, x[:, -1:], cfg)[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(params, tokens, caches, cfg):
+    """One decode step, functional as the reference's: ``caches`` stays
+    as it was and the new caches are a copy.  tokens: (b, 1) integer.
+    Returns (logits (b, vocab_padded), caches).  A loop that owns its
+    caches calls :func:`decode_step_`, which copies nothing."""
+    return decode_step_(params, tokens, _tree.map(torch.clone, caches), cfg)
+
+
+@torch.no_grad()
+def decode_step_(params, tokens, caches, cfg):
+    """:func:`decode_step` in place: the new ring slot and recurrent
+    states are written into ``caches``' stacked buffers and ``pos``
+    advances (the reference's compiled step updates its carry in place
+    too).  Returns (logits (b, vocab_padded), caches)."""
+    pos = caches["pos"]
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_stages):
+        x, _ = T.stage_decode(_stage(params["stages"], i), x, pos,
+                              _stage(caches["stages"], i), cfg)
+    for lp, kind, cache in zip(params["rem"], cfg.remainder_blocks,
+                               caches["rem"]):
+        x, _ = T.layer_decode(lp, kind, x, pos, cache, cfg)
+    x = L.norm(x, params["final_norm"], cfg.norm_type)
+    logits = lm_head(params, x, cfg)[:, 0]
+    pos.add_(1)
+    return logits, caches
 
 
 def param_count(params) -> int:

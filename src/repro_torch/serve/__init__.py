@@ -1,7 +1,8 @@
-"""repro_torch.serve — the SVD-serving engine.
+"""repro_torch.serve — the SVD-serving engine and the LM serving engine.
 
-Port of ``repro.serve`` without the LM-shaped ``ServeEngine`` (that
-comes with the LM stack).  :mod:`repro_torch.serve.svd_service` is the
+Port of ``repro.serve``.  :mod:`repro_torch.serve.engine` is the LM
+``ServeEngine`` (prefill, the decode loop, sampling).
+:mod:`repro_torch.serve.svd_service` is the
 solver-facing subsystem: bucketed plan pool + continuous micro-batching
 over :mod:`repro_torch.solver` plans, with verified solves, retry
 ladders, deadlines, shedding and circuit breakers (see that module's
@@ -14,6 +15,8 @@ from repro_torch.resilience.errors import (Backpressure, CircuitOpen,
                                            SolveFailure)
 from repro_torch.resilience.faultinject import ServiceFaults
 from repro_torch.serve.bucketing import BucketKey, BucketPolicy
+from repro_torch.serve.engine import (ServeEngine, make_decode_fn,
+                                      make_prefill_fn, sample)
 from repro_torch.serve.scheduler import MicroBatchScheduler
 from repro_torch.serve.svd_service import (
     DEFAULT_MODES,
@@ -32,10 +35,14 @@ __all__ = [
     "DeadlineExceeded",
     "FutureTimeout",
     "MicroBatchScheduler",
+    "ServeEngine",
     "ServiceConfig",
     "ServiceFaults",
     "SolveFailure",
     "SvdFuture",
     "SvdService",
+    "make_decode_fn",
+    "make_prefill_fn",
+    "sample",
     "topk_mode_k",
 ]

@@ -74,7 +74,6 @@ def make_train_step(cfg, muon_cfg: MuonConfig, *,
     metrics)).  ``init_state`` draws the parameters from the
     ``torch.Generator`` on their device; the metrics are device
     scalars."""
-    M.check_supported(cfg)
     sched = schedule or functools.partial(
         warmup_cosine, warmup=warmup, total=total_steps)
     compute_dtype = getattr(torch, cfg.dtype)

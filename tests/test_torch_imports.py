@@ -59,7 +59,8 @@ def test_no_jax_or_reference_imports():
             "optim/muon.py", "data/__init__.py", "data/pipeline.py",
             "train/__init__.py", "train/step.py", "train/loop.py",
             "checkpoint/__init__.py", "checkpoint/manager.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "models/moe.py", "models/ssm.py",
+            "models/rglru.py", "serve/engine.py", "launch/serve.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
@@ -90,7 +91,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.train, repro_torch.data.pipeline\n"
             "import repro_torch.checkpoint.manager, repro_torch.tree\n"
-            "import repro_torch.launch.train\n"
+            "import repro_torch.launch.train, repro_torch.launch.serve\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
+            "import repro_torch.models.rglru, repro_torch.serve.engine\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     assert _run(code, 0) == "[]"

@@ -10,9 +10,13 @@ both registries' ``input_specs`` (the same numpy draws), and:
 * gradients agree with ``jax.grad`` within GRAD_TOL of each leaf's max
   |grad| (the same f32 sums through the backward pass).
 
-Every attention-only dense arch's SMOKE config is covered: olmo-1b
-(non-parametric LayerNorm), qwen3-8b (qk-norm), yi-34b, h2o-danube-3-4b
-(sliding window), musicgen-large (GELU) and pixtral-12b (prefix embeds).
+Every arch's SMOKE config is covered: olmo-1b (non-parametric
+LayerNorm), qwen3-8b (qk-norm), yi-34b, h2o-danube-3-4b (sliding
+window), musicgen-large (GELU), pixtral-12b (prefix embeds), mamba2-130m
+(SSD, no MLP, tied embeddings), recurrentgemma-2b (RG-LRU + local
+attention, a remainder of unstacked layers, softcapped logits),
+dbrx-132b and moonshot-v1-16b-a3b (MoE, whose aux loss enters the loss
+with the train step's weight).
 """
 
 import dataclasses
@@ -38,10 +42,8 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train import step as S  # noqa: E402
 
-DENSE_ARCHS = ("olmo-1b", "qwen3-8b", "yi-34b", "h2o-danube-3-4b",
-               "musicgen-large", "pixtral-12b")
-UNPORTED = {"mamba2-130m": "'ssd'", "recurrentgemma-2b": "'rglru'",
-            "dbrx-132b": "MoE", "moonshot-v1-16b-a3b": "MoE"}
+ARCHS = tuple(C.list_archs())
+AUX_WEIGHT = 0.01  # the train step's default weight of the MoE aux loss
 FWD_TOL = 1e-5    # max|err| / max|logits|, f32
 GRAD_TOL = 1e-4   # max|err| / max|grad| per leaf, f32
 LAYER_TOL = 1e-6  # elementwise layers, f32, relative to max|out|
@@ -80,52 +82,59 @@ def _batches(jcfg, cfg, shape=SHAPE, seed=1):
 
 
 def _loss_pair(jcfg, cfg):
-    """The train step's loss on given params, in each package."""
+    """The train step's loss (cross entropy + the weighted aux loss) on
+    given params, in each package."""
 
     def jloss(params, batch):
-        x, _ = JM.hidden_states(params, batch, jcfg)
+        x, aux = JM.hidden_states(params, batch, jcfg)
         w = params["embed"].T if jcfg.tie_embeddings else params["lm_head"]
         p = jcfg.num_prefix_embeds
         toks = batch["tokens"]
         return JS.chunked_ce_loss(x[:, p:p + toks.shape[1] - 1], w,
-                                  toks[:, 1:], softcap=jcfg.logits_softcap)
+                                  toks[:, 1:], softcap=jcfg.logits_softcap) \
+            + AUX_WEIGHT * aux
 
     def loss(params, batch):
-        x, _ = M.hidden_states(params, batch, cfg)
+        x, aux = M.hidden_states(params, batch, cfg)
         w = params["embed"].mT if cfg.tie_embeddings else params["lm_head"]
         p = cfg.num_prefix_embeds
         toks = batch["tokens"]
         return S.chunked_ce_loss(x[:, p:p + toks.shape[1] - 1], w,
-                                 toks[:, 1:], softcap=cfg.logits_softcap)
+                                 toks[:, 1:], softcap=cfg.logits_softcap) \
+            + AUX_WEIGHT * aux
 
     return jloss, loss
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_loss_match_reference(arch):
     jcfg, cfg, jp, p = _pair(arch)
     jb, b = _batches(jcfg, cfg)
     for k in jb:
         assert np.array_equal(np.asarray(jb[k]), b[k].numpy()), k
-    jlogits, _ = JM.forward(jp, jb, jcfg)
+    jlogits, jaux = jax.jit(JM.forward, static_argnums=2)(jp, jb, jcfg)
     with torch.no_grad():
         logits, aux = M.forward(p, b, cfg)
     assert logits.shape == jlogits.shape == (
         2, SHAPE.seq_len, cfg.vocab_padded)
-    assert float(aux) == 0.0
+    if cfg.num_experts:
+        assert float(aux) == pytest.approx(float(jaux), rel=FWD_TOL)
+        assert float(aux) > 0.0
+    else:
+        assert float(aux) == float(jaux) == 0.0
     assert _rel(jlogits, logits) < FWD_TOL
     jloss, loss = _loss_pair(jcfg, cfg)
     with torch.no_grad():
         got = float(loss(p, b))
-    assert got == pytest.approx(float(jloss(jp, jb)), rel=FWD_TOL)
+    assert got == pytest.approx(float(jax.jit(jloss)(jp, jb)), rel=FWD_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_gradients_match_jax_grad(arch):
     jcfg, cfg, jp, p = _pair(arch, seed=3)
     jb, b = _batches(jcfg, cfg, seed=4)
     jloss, loss = _loss_pair(jcfg, cfg)
-    jg = jax.grad(jloss)(jp, jb)
+    jg = jax.jit(jax.grad(jloss))(jp, jb)
     names, leaves, tdef = tree.flatten_with_names(p)
     leaves = [t.requires_grad_() for t in leaves]
     grads = torch.autograd.grad(loss(tree.unflatten(tdef, leaves), b),
@@ -236,7 +245,7 @@ def test_truncated_normal_init_draws_from_its_generator():
     assert 0.08 < float(a.std()) < 0.13
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_layout_and_param_count_match_reference(arch):
     jcfg, cfg, jp, p = _pair(arch)
     assert M.param_count(p) == JM.param_count(jp)
@@ -246,15 +255,6 @@ def test_layout_and_param_count_match_reference(arch):
     for t, jl in zip(leaves, jax.tree.leaves(jp)):
         assert tuple(t.shape) == jl.shape
         assert str(t.dtype).split(".")[-1] == str(jl.dtype)
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_block_kinds_raise(arch):
-    cfg = C.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="later slice|slice of"):
-        S.make_train_step(cfg, None)
 
 
 def test_registry_matches_reference():
