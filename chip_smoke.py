@@ -217,6 +217,27 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     forward's argmax wherever its top-2 gap exceeds the tolerance.  Each
     training run: seconds a step, the share in ``orthogonalize``, peak
     memory, and K1/K2 a step equal to the Muon plans' count.
+21. the sharded train path (``repro_torch.dist.sharding``): (a) phase
+    19's case (the same seed state) on a one-rank ("data", "model") =
+    (1, 1) NCCL ``DeviceMesh`` on the card, the state placed by
+    ``tree_shardings(arch_rules(...))`` and every step under
+    ``activation_hints``: its first step against the unsharded step from
+    the same state (loss and gradient norm within SHARDED_TOL relative,
+    every updated parameter within MUON_TOL of its update's size), K1/K2
+    a step equal to phase 19's, 0 collectives a step, 0 synchronising
+    calls (one step under the sync debug mode), the step time beside
+    phase 19's and the peak memory; (b) ZoloMuon's row-split solve on
+    SHARDED_ROWS_WORLD gloo ranks on the card, on (a)'s momenta of the
+    SHARDED_ROWS_CASES leaves (see SHARDED_TOL's note): per rank K1/K2
+    equal to the plan's, the Gram and prescale all-reduces over "data"
+    and none over "model", Q gathered over "data" within MUON_TOL of the
+    single-rank zolo_cuda and zolo_static factors, then K1/K2 at the
+    ranks' block shapes against their plain versions; (c) the dry-run
+    CLI (``python -m repro_torch.launch.dryrun``) on DRYRUN_CELL on the
+    (16, 16) fake mesh, plain and ``--optimized``, and the smoke cells,
+    in three subprocesses at once: status ok, per-kind collective counts
+    and bytes per rank, the Muon Grams' all-reduces over "data",
+    argument bytes per rank and seconds.
 
 Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
 paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
@@ -358,6 +379,30 @@ SERVE_LM = {
             "serve": {"batch": 4, "prompt": 2048, "gen": 32,
                       "max_len": 2048 + 32}},
 }
+# phase 21: (a) phase 19's step on a (1, 1) mesh against the unsharded
+# one from the same state: the same ops on replicated DTensors, so
+# loss and gradient norm within SHARDED_TOL relative; (b) ZoloMuon's
+# row-split solve (SvdPlan._polar_rows_batched, what the sharded update
+# runs on each rank's local blocks) on SHARDED_ROWS_WORLD gloo ranks
+# sharing the card, spawned as phase 17's are, on the momenta of 21a's
+# last step: each case a Muon leaf on a ("data", "model") mesh, the stack
+# over "model" and the long dimension over "data" (the ("opt_stack",
+# "opt_rows") hints), Q gathered over "data" held to the single-rank
+# zolo_cuda and zolo_static factors within MUON_TOL.  DTensor's own
+# redistributes (functional collectives) hang over gloo on CUDA tensors
+# (torch 2.11+cu128) and NCCL takes one rank a card, so the whole sharded
+# train step on (2, 2) runs only on the CPU
+# (tests/test_torch_sharded_train.py); the solve's collectives are plain
+# c10d all-reduces, which gloo runs on CUDA tensors.  (c) the dry-run's
+# cell, and its deadline for both subprocesses.
+SHARDED_TOL = 1e-5
+SHARDED_ROWS_WORLD = 4
+SHARDED_ROWS_CASES = (("stages/0/mlp/wo", (2, 2)),
+                      ("stages/0/mlp/wi_gate", (2, 2)),
+                      ("stages/0/mlp/wo", (4, 1)))
+SHARDED_ROWS_DEADLINE = 300
+DRYRUN_CELL = ("qwen3-8b", "train_4k")
+DRYRUN_TIMEOUT = 300
 # the CPU rehearsal: the same cases on the smoke configs at a tiny size
 SERVE_LM_REHEARSAL = {
     "20a": {"layers": 2, "serve": {"batch": 2, "prompt": 48, "gen": 6,
@@ -2471,13 +2516,13 @@ def profile_split(torch, clock, fn, top=12):
 
 
 class CollectiveCounter:
-    """Counts the all-reduces issued on each axis of the given meshes
-    while entered (``torch.distributed.all_reduce`` is wrapped, and
-    restored on exit), their bytes, and the shapes of the "zolo" ones:
-    that all-reduce carries the rank's local iterate."""
+    """Counts the all-reduces issued on each named process group while
+    entered (``torch.distributed.all_reduce`` is wrapped, and restored on
+    exit), their bytes and shapes.  ``axes`` is {id(group): axis name},
+    or ``meshes``: the "sep" and "zolo" groups of grouped meshes."""
 
-    def __init__(self, meshes):
-        self.axis = {}
+    def __init__(self, meshes=(), axes=None):
+        self.axis = dict(axes or {})
         for mesh in meshes:
             self.axis[id(mesh.sep_group)] = "sep"
             self.axis[id(mesh.zolo_group)] = "zolo"
@@ -2499,14 +2544,22 @@ class CollectiveCounter:
         self.dist.all_reduce = self.real
         return False
 
-    def record(self):
+    def record(self, axes=("sep", "zolo"), gram_bytes=None):
+        """Per axis (and "other"): the count and bytes; with
+        ``gram_bytes``, how many carried at least that many (the (n, n)
+        Grams, against the prescale's vectors and scalars).  The "zolo"
+        all-reduce carries a rank's local iterate: its shapes too."""
         out = {}
-        for ax in ("sep", "zolo", "other"):
+        for ax in tuple(axes) + ("other",):
             calls = [c for c in self.calls if c[0] == ax]
             out[ax] = len(calls)
             out[f"{ax}_bytes"] = sum(c[2] for c in calls)
-        out["zolo_shapes"] = sorted({c[1] for c in self.calls
-                                     if c[0] == "zolo"})
+            if gram_bytes is not None:
+                out[f"{ax}_grams"] = sum(1 for c in calls
+                                         if c[2] >= gram_bytes)
+        if "zolo" in axes:
+            out["zolo_shapes"] = sorted({c[1] for c in self.calls
+                                         if c[0] == "zolo"})
         return out
 
 
@@ -2948,53 +3001,48 @@ def phase_profile(torch, device, clock, a):
     return split_solve(torch, clock, p, a)
 
 
-def phase_grouped(torch, device, n, s_main, cpsum, profile):
-    """Phase 17: paper Algorithm 3 on GROUPED_WORLD gloo ranks sharing
-    the device (spawned; each rank runs K1/K2 on the card, the
-    collectives go through gloo and host memory)."""
+def spawn_ranks(torch, target, args, world, deadline, label):
+    """Spawn ``world`` ranks running ``target(rank, world, init, *args,
+    queue)`` on a gloo world (file:// init under build/), collect one
+    record a rank; fails on a rank's error, death or the deadline, and
+    stops every rank it started.  Returns ({rank: record}, seconds)."""
     import queue as queue_mod
     import tempfile
 
     import torch.multiprocessing as mp
 
-    say(f"== phase 17: grouped Algorithm 3, {GROUPED_WORLD} gloo ranks on "
-        f"{device}, linverse n = {n}")
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     scratch = os.path.join(HERE, "build")
     os.makedirs(scratch, exist_ok=True)
     init = "file://" + os.path.join(tempfile.mkdtemp(dir=scratch), "init")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=grouped_rank,
-                         args=(r, GROUPED_WORLD, init, n, device.type,
-                               cpsum, profile, results))
-             for r in range(GROUPED_WORLD)]
+    procs = [ctx.Process(target=target,
+                         args=(r, world, init) + tuple(args) + (results,))
+             for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     recs = {}
     try:
-        while len(recs) < GROUPED_WORLD:
-            if time.perf_counter() - t0 > GROUPED_DEADLINE:
-                fail(f"phase 17 ranks did not finish within "
-                     f"{GROUPED_DEADLINE} s")
+        while len(recs) < world:
+            if time.perf_counter() - t0 > deadline:
+                fail(f"{label} ranks did not finish within {deadline} s")
             try:
                 rec = results.get(timeout=5)
             except queue_mod.Empty:
                 dead = [p.exitcode for p in procs
                         if p.exitcode not in (None, 0)]
-                check(not dead, f"a phase 17 rank died (exit codes "
+                check(not dead, f"a {label} rank died (exit codes "
                       f"{[p.exitcode for p in procs]})")
                 continue
-            check("error" not in rec, f"phase 17 rank {rec['rank']} "
+            check("error" not in rec, f"{label} rank {rec['rank']} "
                   f"failed:\n{rec.get('error')}")
             recs[rec["rank"]] = rec
         for p in procs:
             p.join(60)
         check(all(p.exitcode == 0 for p in procs),
-              f"phase 17 ranks exited {[p.exitcode for p in procs]}")
+              f"{label} ranks exited {[p.exitcode for p in procs]}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -3002,7 +3050,20 @@ def phase_grouped(torch, device, n, s_main, cpsum, profile):
                 p.join(10)
         shutil.rmtree(os.path.dirname(init[len("file://"):]),
                       ignore_errors=True)
-    secs = time.perf_counter() - t0
+    return recs, time.perf_counter() - t0
+
+
+def phase_grouped(torch, device, n, s_main, cpsum, profile):
+    """Phase 17: paper Algorithm 3 on GROUPED_WORLD gloo ranks sharing
+    the device (spawned; each rank runs K1/K2 on the card, the
+    collectives go through gloo and host memory)."""
+    say(f"== phase 17: grouped Algorithm 3, {GROUPED_WORLD} gloo ranks on "
+        f"{device}, linverse n = {n}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    recs, secs = spawn_ranks(torch, grouped_rank,
+                             (n, device.type, cpsum, profile),
+                             GROUPED_WORLD, GROUPED_DEADLINE, "phase 17")
     for key in ("17a", "17b", "17c", "17f", "17d"):
         rows = [recs[r][key] for r in sorted(recs)]
         acc = rows[0].get("accuracy")
@@ -4234,6 +4295,508 @@ def phase_serve_lm(torch, device, clock, cases):
     return out
 
 
+
+def place_state(cfg, state, batch, mesh):
+    """(rules, the state and the batch placed by ``tree_shardings`` of
+    ``arch_rules``) — each rank cuts its own shards (no collective)."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import step as TS
+
+    b, s = batch["tokens"].shape
+    rules = S.arch_rules(cfg, mesh, ShapeConfig("train", "train", s, b))
+    axes = TS.state_axes_for_params(cfg, state.params)
+    placed = S.distribute_tree(state, S.tree_shardings(mesh, rules, axes),
+                               src_data_rank=None)
+    return rules, placed, place_batch(batch, rules)
+
+
+def place_batch(batch, rules):
+    from repro_torch.dist import sharding as S
+
+    return S.distribute_tree(batch, S.tree_shardings(
+        rules.mesh, rules, {"tokens": ("batch", None)}), src_data_rank=None)
+
+
+def update_agreement(new_params, ref_params, old_params):
+    """max over leaves of max|p - p_ref| / max|p_ref - p_old|: the
+    difference of two updates of the same state relative to the update's
+    size (for a Muon leaf, max|dQ|/max|Q|); ``ref_params`` may lie on the
+    host.  Returns (the max, {leaf: ratio})."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+
+    names, new, _ = tree.flatten_with_names(new_params)
+    ratios = {}
+    for name, x, r, p0 in zip(names, new, tree.leaves(ref_params),
+                              tree.leaves(old_params)):
+        x = x.full_tensor() if isinstance(x, DTensor) else x
+        p0 = p0.full_tensor() if isinstance(p0, DTensor) else p0
+        r = r.to(x.device)
+        step = float((r.float() - p0.float()).abs().max())
+        diff = float((x.float() - r.float()).abs().max())
+        ratios[name] = diff / step if step else diff
+    return max(ratios.values()), ratios
+
+
+def phase_sharded_1x1(torch, device, clock, sizes, train_rec):
+    """Phase 21a: phase 19's training case on a one-rank (1, 1)
+    ("data", "model") mesh (NCCL on the card), placed by the rules and
+    run under the hints.  Returns (its record, the momenta of the
+    SHARDED_ROWS_CASES leaves after its last step, on the host)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch.dryrun import CollectiveRecorder, mesh_group_axes
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import muon as MU
+    from repro_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    counters = kernel_modules()
+    cfg, b, s = sizes["cfg"], sizes["batch"], sizes["seq"]
+    say(f"== phase 21a: phase 19's {cfg.name} step on a (1, 1) ('data', "
+        f"'model') mesh ({'nccl' if on_card else 'gloo'}), batch {b} x {s}, "
+        "under activation_hints")
+    scratch = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method="file://" + os.path.join(scratch,
+                                                                 "init"),
+                            rank=0, world_size=1)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "seq": s}
+    try:
+        mesh = make_debug_mesh(1, 1, device_type=device.type)
+        muon_cfg = MU.MuonConfig()
+        init_fn, step_fn = TS.make_train_step(cfg, muon_cfg, total_steps=100,
+                                              warmup=1)
+        state = init_fn(torch.Generator(device=device).manual_seed(0))
+        names, muon_leaves = muon_leaf_shapes(state.params)
+        _, want, _ = muon_plans(muon_cfg, muon_leaves, device)
+        data = SyntheticLM(cfg.vocab_size, s, b, dtype=cfg.dtype,
+                           device=str(device))
+        batch = data.batch_at(0)
+        # the unsharded step from the same state; its parameters wait on
+        # the host
+        ref, ref_m = step_fn(state, batch)
+        ref_m = {k: float(v) for k, v in ref_m.items()}
+        ref_params = tree.map(lambda t: t.cpu(), ref.params)
+        del ref
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        rules, placed, pbatch = place_state(cfg, state, batch, mesh)
+        rec["placements"] = sorted({str(tuple(x.placements)) for x in
+                                    tree.leaves(placed)})
+        steps = []
+        for i in range(3):
+            if i:
+                pbatch = place_batch(data.batch_at(i), rules)
+            rec_mode = CollectiveRecorder(mesh_group_axes(mesh))
+            zero_counts(counters)
+            clock.sync()
+            t0 = time.perf_counter()
+
+            def run():
+                with S.activation_hints(rules), rec_mode:
+                    return step_fn(placed if i == 0 else new, pbatch)
+
+            if i == 2 and on_card:
+                (out, metrics), n_sync, sites = sync_sites(torch, run)
+            else:
+                out, metrics = run()
+                n_sync, sites = None, {}
+            clock.sync()
+            secs = time.perf_counter() - t0
+            m = {k: float(v) for k, v in metrics.items()}
+            st = {"step": i, "seconds": secs,
+                  "launches": read_counts(counters),
+                  "collectives": len(rec_mode.records),
+                  "syncs": n_sync, "sync_sites": sites, **m}
+            steps.append(st)
+            say(f"sharded step {i} ({['vs unsharded', 'timed', 'sync debug'][i]}"
+                f"): {secs:.3f} s, loss {m['loss']:.6f}, grad norm "
+                f"{m['grad_norm']:.6f}, K1 {st['launches']['gram']} K2 "
+                f"{st['launches']['grouped_combine']}, collectives "
+                f"{st['collectives']}"
+                + (f", synchronising calls {n_sync} {sites}" if i == 2
+                   else ""))
+            if i == 0:
+                worst, ratios = update_agreement(out.params, ref_params,
+                                                 state.params)
+                rec["vs_unsharded"] = {
+                    "loss": [m["loss"], ref_m["loss"]],
+                    "grad_norm": [m["grad_norm"], ref_m["grad_norm"]],
+                    "max_update_diff": worst,
+                    "worst_leaf": max(ratios, key=ratios.get)}
+                say(f"21a vs the unsharded step: loss {m['loss']:.8g} / "
+                    f"{ref_m['loss']:.8g}, grad norm {m['grad_norm']:.8g} / "
+                    f"{ref_m['grad_norm']:.8g}, max|dp|/max|update| "
+                    f"{worst:.3e} ({rec['vs_unsharded']['worst_leaf']})")
+                for k in ("loss", "grad_norm"):
+                    check(abs(m[k] - ref_m[k]) <= SHARDED_TOL * abs(ref_m[k]),
+                          f"21a: {k} {m[k]} against the unsharded "
+                          f"{ref_m[k]}")
+                check(worst <= MUON_TOL, f"21a: an update differs by "
+                      f"{worst:.3e} of its size: {ratios}")
+                del placed, state, ref_params
+            new = out
+            check(math.isfinite(m["loss"]), f"21a: step {i} loss {m}")
+            check(st["collectives"] == 0, f"21a: step {i} issued "
+                  f"{st['collectives']} collectives on a one-rank mesh")
+            if on_card:
+                check(st["launches"] == want, f"21a: step {i} launched "
+                      f"{st['launches']}, phase 19's plans say {want}")
+        if on_card:
+            check(steps[2]["syncs"] == 0, f"21a: {steps[2]['syncs']} "
+                  f"synchronising calls in a step: {steps[2]['sync_sites']}")
+        rec["steps"] = steps
+        rec["launches_per_step"] = steps[1]["launches"]
+        rec["launches_want"] = want
+        rec["step_s"] = steps[1]["seconds"]
+        rec["phase19_step_s"] = train_rec["step_s"]
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
+            else None
+        # 21b's inputs: the momenta of the last step, on the host
+        mu_names, mu_leaves, _ = tree.flatten_with_names(new.opt["mu"])
+        leaves = {leaf for leaf, _ in SHARDED_ROWS_CASES}
+        momenta = {n_: (x.to_local() if isinstance(x, DTensor) else x)
+                   .float().cpu()
+                   for n_, x in zip(mu_names, mu_leaves) if n_ in leaves}
+        del new, out, mu_leaves
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(scratch, ignore_errors=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 21a ({rec['seconds']:.1f} s): a step {rec['step_s']:.3f} s "
+        f"on the (1, 1) mesh against phase 19's {rec['phase19_step_s']:.3f}"
+        f" s unsharded; peak "
+        + ("not measured" if rec["peak_bytes"] is None
+           else f"{rec['peak_bytes'] / 2**30:.2f} GiB"))
+    return rec, momenta
+
+
+# --- phase 21b: ZoloMuon's row-split solve on gloo ranks sharing the card ---
+
+
+def mesh_groups(torch, world, data, model):
+    """This rank's ("data", "model") process groups of a (data, model)
+    mesh over ``world`` ranks laid out data-major (rank = d * model + m),
+    as ``init_device_mesh`` lays them; every rank creates every group, in
+    the same order.  Returns (data group, model group, d, m)."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    check(data * model == world, f"mesh {(data, model)} on {world} ranks")
+    d, m = divmod(rank, model)
+    mine = {}
+    for axis, members in (
+            ("data", [[i * model + j for i in range(data)]
+                      for j in range(model)]),
+            ("model", [[i * model + j for j in range(model)]
+                       for i in range(data)])):
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = g
+    return mine["data"], mine["model"], d, m
+
+
+def sharded_rows_run(torch, rank, device, cases):
+    """One rank of 21b: per case, its block of the momentum stack (its
+    "model" slice of the stack, its "data" block of the long dimension),
+    the row-split solve on it with the kernels counted and the all-reduces
+    counted per mesh axis, Q gathered over "data" (a plain c10d
+    all-gather), and this rank's matrices solved whole by the zolo_cuda
+    and zolo_static plans for the yardstick."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import repro_torch.solver as S
+    from repro_torch.optim import muon as MU
+
+    counters = kernel_modules()
+    muon_cfg = MU.MuonConfig()
+    world = dist.get_world_size()
+    groups, out = {}, {"rank": rank, "cases": []}
+    for case in cases:
+        data, model = case["mesh"]
+        if (data, model) not in groups:
+            groups[(data, model)] = mesh_groups(torch, world, data, model)
+        g_data, g_model, d, m = groups[(data, model)]
+        mu = torch.load(case["path"], mmap=True, weights_only=True)
+        s, rows, cols = mu.shape
+        per = s // model
+        long_dim = 1 if rows >= cols else 2
+        blk = mu.shape[long_dim] // data
+        mine = mu[m * per:(m + 1) * per]
+        local = mine.narrow(long_dim, d * blk, blk).to(device).contiguous()
+        plan = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                              muon_cfg.l0, muon_cfg.max_iters,
+                              muon_cfg.polar_dtype, str(device))
+        counter = CollectiveCounter(axes={id(g_data): "data",
+                                          id(g_model): "model"})
+        dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        with counter:
+            q = plan._polar_rows_batched(local, group=g_data, index=d)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(counters)
+        qm = q.movedim(long_dim, 0).contiguous()
+        full = torch.empty((blk * data,) + tuple(qm.shape[1:]),
+                           dtype=qm.dtype, device=device)
+        dist.all_gather_into_tensor(full, qm, group=g_data)
+        q_full = full.movedim(0, long_dim)
+        a = mine.to(device)
+        q_cuda = plan.polar_batched(a, want_h=False)[0]
+        p_static = S.plan(dataclasses.replace(plan.config,
+                                              method="zolo_static"),
+                          (rows, cols), torch.float32, device=device)
+        q_static = p_static.polar_batched(a, want_h=False)[0]
+        n = min(rows, cols)
+        rec = {"leaf": case["leaf"], "mesh": [data, model],
+               "coords": [d, m], "local_shape": list(local.shape),
+               "iterations": len(plan.schedule), "r": plan.r,
+               "seconds": secs, "launches": launches,
+               "all_reduces": counter.record(("data", "model"), n * n * 4),
+               "err_vs_zolo_cuda": float((q_full - q_cuda).abs().amax()
+                                         / q_cuda.abs().amax()),
+               "err_vs_zolo_static": float((q_full - q_static).abs().amax()
+                                           / q_static.abs().amax()),
+               "checksum": float(q_full.double().sum())}
+        out["cases"].append(rec)
+        del mu, mine, local, q, qm, full, q_full, a, q_cuda, q_static
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rows_rank(rank, world, init, dev_type, cases, queue):
+    """One rank of phase 21b (a spawned process): join the gloo world,
+    run the cases, put the record (or the traceback) on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        torch.set_num_threads(1)
+        device = torch.device(dev_type, 0) if dev_type == "cuda" else \
+            torch.device("cpu")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        dist.init_process_group(
+            "gloo", init_method=init, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=GROUPED_TIMEOUT))
+        try:
+            queue.put(sharded_rows_run(torch, rank, device, cases))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_sharded_rows(torch, device, clock, momenta):
+    """Phase 21b: ZoloMuon's row-split solve on SHARDED_ROWS_WORLD gloo
+    ranks sharing the device, on ``momenta`` (21a's, {leaf: (s, rows,
+    cols)} on the host), one SHARDED_ROWS_CASES entry at a time; then K1
+    and K2 at each rank block's canonical shape against their plain
+    versions (not counted: the ranks' counts are the path's)."""
+    import tempfile
+
+    from repro_torch.analysis.plan_audit import MODE_SEP_PSUMS
+    from repro_torch.optim import muon as MU
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    say(f"== phase 21b: ZoloMuon's row-split solve on {SHARDED_ROWS_WORLD} "
+        f"gloo ranks on {device}: "
+        + "; ".join(f"{leaf} {tuple(momenta[leaf].shape)} on (data, model)"
+                    f" = {mesh}" for leaf, mesh in SHARDED_ROWS_CASES))
+    if on_card:
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        paths = {}
+        for leaf in {leaf for leaf, _ in SHARDED_ROWS_CASES}:
+            paths[leaf] = os.path.join(tmp, leaf.replace("/", "_") + ".pt")
+            torch.save(momenta[leaf].contiguous(), paths[leaf])
+        cases = [{"leaf": leaf, "mesh": list(mesh), "path": paths[leaf]}
+                 for leaf, mesh in SHARDED_ROWS_CASES]
+        recs, secs = spawn_ranks(torch, sharded_rows_rank,
+                                 (device.type, cases), SHARDED_ROWS_WORLD,
+                                 SHARDED_ROWS_DEADLINE, "phase 21b")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    muon_cfg = MU.MuonConfig()
+    out = {"seconds": secs, "world": SHARDED_ROWS_WORLD, "cases": []}
+    shapes = set()
+    for i, (leaf, (data, model)) in enumerate(SHARDED_ROWS_CASES):
+        s_, rows, cols = momenta[leaf].shape
+        plan = MU._polar_plan(muon_cfg.method, rows, cols, muon_cfg.r,
+                              muon_cfg.l0, muon_cfg.max_iters,
+                              muon_cfg.polar_dtype, str(device))
+        count = s_ // model
+        iters = len(plan.schedule)
+        want = muon_launch_want([(plan, count)])
+        grams = count * (MODE_SEP_PSUMS["cholqr2"]
+                         + MODE_SEP_PSUMS["chol"] * (iters - 1))
+        rows_ = [recs[r]["cases"][i] for r in sorted(recs)]
+        label = f"21b {leaf} on ({data}, {model})"
+        for r, c in enumerate(rows_):
+            ar = c["all_reduces"]
+            say(f"{label} rank {r} {tuple(c['local_shape'])}: "
+                f"{c['seconds']:.3f} s, K1 {c['launches']['gram']} K2 "
+                f"{c['launches']['grouped_combine']}, all-reduces over data "
+                f"{ar['data']} ({ar['data_grams']} Grams, "
+                f"{ar['data_bytes']:,} B), over model {ar['model']}, other "
+                f"{ar['other']}; Q gathered over data vs single-rank "
+                f"zolo_cuda {c['err_vs_zolo_cuda']:.3e}, vs zolo_static "
+                f"{c['err_vs_zolo_static']:.3e}")
+            check(c["err_vs_zolo_cuda"] <= MUON_TOL
+                  and c["err_vs_zolo_static"] <= MUON_TOL,
+                  f"{label} rank {r}: Q differs by "
+                  f"{c['err_vs_zolo_cuda']:.3e} (zolo_cuda) / "
+                  f"{c['err_vs_zolo_static']:.3e} (zolo_static)")
+            check(ar["data_grams"] == grams and ar["data"] == grams
+                  + count * 9 and ar["model"] == 0 and ar["other"] == 0,
+                  f"{label} rank {r}: all-reduces {ar}, expected {grams} "
+                  f"Grams and {count * 9} prescale ones over data, none "
+                  "over model")
+            if on_card:
+                check(c["launches"] == want, f"{label} rank {r}: launched "
+                      f"{c['launches']}, the plan says {want}")
+            shapes.add(tuple(c["local_shape"][1:]) if rows >= cols
+                       else tuple(c["local_shape"][:0:-1]))
+        for m in range(model):
+            sums = {c["checksum"] for c in rows_ if c["coords"][1] == m}
+            check(len(sums) == 1, f"{label}: the ranks of model slice {m} "
+                  f"gathered different factors {sums}")
+        out["cases"].append({"leaf": leaf, "mesh": [data, model],
+                             "launches_want": want, "grams_want": grams,
+                             "ranks": rows_})
+    # K1 and K2 at the ranks' block shapes (canonical: m >= n may not
+    # hold for a block), against their plain versions
+    out["kernel_times"] = {
+        f"{m_}x{n_}": muon_kernel_times(torch, device, clock, m_, n_,
+                                        muon_cfg.r, "21b block")
+        for m_, n_ in sorted(shapes)}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"phase 21b: {out['phase_seconds']:.1f} s ({secs:.1f} s of ranks)")
+    return out
+
+
+# 21c's small cells: every step kind of the smoke config of the
+# reference's small-mesh test (tests/test_dryrun_unit.py) on a (1, 1)
+# fake mesh
+DRYRUN_SMALL = r"""
+import json, sys
+from repro_torch import configs as C
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models.config import ShapeConfig
+D.init_fake_process_group()
+mesh = make_debug_mesh(1, 1, device_type="cpu")
+cfg = C.get_smoke_config("recurrentgemma-2b")
+for kind in ("train", "prefill", "decode"):
+    D.run_cell(cfg.name, ShapeConfig(f"smoke_{kind}", kind, 64, 2), False,
+               sys.argv[1], mesh=mesh, cfg=cfg)
+"""
+
+
+def phase_dryrun(torch):
+    """Phase 21c: the dry-run CLI on DRYRUN_CELL on the (16, 16) fake
+    mesh, plain and --optimized, and the small cells (DRYRUN_SMALL), in
+    three subprocesses at once."""
+    import tempfile
+
+    arch, shape = DRYRUN_CELL
+    say(f"== phase 21c: python -m repro_torch.launch.dryrun --arch {arch} "
+        f"--shape {shape} [--optimized] on the (16, 16) fake mesh, and the "
+        "recurrentgemma-2b smoke config's train, prefill and decode cells "
+        "on a (1, 1) fake mesh")
+    out = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out] + flag, cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag in ([], ["--optimized"])]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SMALL, out], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DRYRUN_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    secs = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          f"21c: the dry-run exited {[p.returncode for p in procs]}: "
+          f"{[e[-2000:] for _, e in logs]}")
+    rec = {"seconds": secs}
+    for opt in (False, True):
+        fn = os.path.join(out, f"{arch}__{shape}__16_16"
+                          f"{'__opt' if opt else ''}.json")
+        with open(fn) as f:
+            cell = json.load(f)
+        cell.pop("trace", None)
+        key = "optimized" if opt else "plain"
+        rec[key] = cell
+        check(cell["status"] == "ok", f"21c: {key} cell {cell['status']}: "
+              f"{cell.get('error')}")
+        coll = cell["collectives"]
+        say(f"21c {key}: {cell['run_s']} s run, {cell['total_s']} s in all;"
+            f" per rank: flops {cell['cost']['flops']:.4g}, argument bytes "
+            f"{cell['memory']['argument_size_in_bytes']:,}; "
+            + "; ".join(f"{k} {coll[k]['count']} / {coll[k]['bytes']:,} B"
+                        for k in ("all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"))
+            + f"; by axis {cell['collectives_by_axis']}")
+    check(rec["optimized"]["collectives_by_axis"].get("data", {}).get(
+        "all-reduce", 0) > 0, "21c: no all-reduce over data in the "
+        "optimized cell")
+    rec["small"] = {}
+    for kind in ("train", "prefill", "decode"):
+        fn = f"recurrentgemma-2b__smoke_{kind}__1_1.json"
+        with open(os.path.join(out, fn)) as f:
+            cell = json.load(f)
+        rec["small"][fn] = {k: cell.get(k) for k in (
+            "status", "error", "run_s", "cost", "memory")}
+        say(f"21c small cell {fn}: {cell['status']} "
+            f"{cell.get('error', '')[-300:]}")
+        check(cell["status"] == "ok", f"21c: {fn} {cell['status']}")
+    shutil.rmtree(out, ignore_errors=True)
+    say(f"phase 21c: {secs:.1f} s for the three runs")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -4345,6 +4908,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     record["serve_lm"] = lm_rec = phase_serve_lm(torch, device, clock,
                                                  serve_lm)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    record["sharded_1x1"], momenta = phase_sharded_1x1(
+        torch, device, clock, train, train_rec)
+    sh1_rec = record["sharded_1x1"]
+    record["sharded_rows"] = rows_rec = phase_sharded_rows(
+        torch, device, clock, momenta)
+    del momenta
+    record["dryrun"] = phase_dryrun(torch)
     record["seconds"] = time.perf_counter() - t_start
 
     def muon_row(t):
@@ -4409,6 +4981,15 @@ def main(argv=None) -> int:
             solves[f"serve_{r_['arch']}"] = r_["launches"]
         elif key.endswith("_train"):
             solves[f"train_step_{r_['arch']}"] = r_["launches_per_step"]
+    # phase 21: a sharded step on the (1, 1) mesh
+    solves[f"train_step_sharded_1x1_{TRAIN_ARCH}"] = \
+        sh1_rec["launches_per_step"]
+    # 21b: rank 0's row-split solves, per case
+    for case in rows_rec["cases"]:
+        d_, m_ = case["mesh"]
+        leaf = case["leaf"].rsplit("/", 1)[-1]
+        solves[f"muon_sharded_{d_}x{m_}_{TRAIN_ARCH}_{leaf}_rank0"] = \
+            case["ranks"][0]["launches"]
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],
@@ -4451,6 +5032,10 @@ def main(argv=None) -> int:
                 f"{r_['arch']} {shape}": muon_row(kt[key])
                 for k_, r_ in lm_rec.items() if k_.endswith("_train")
                 for shape, kt in r_["kernel_times"].items()}
+            # 21b's rank blocks
+            rec["muon_blocks_21b"] = {
+                shape: muon_row(kt[key])
+                for shape, kt in rows_rec["kernel_times"].items()}
         kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -15,6 +15,11 @@ layout, so a checkpoint either package writes restores in the other:
 * **Async** — leaves are copied to host memory on the caller's thread,
   then one background thread writes them, so the train loop only blocks
   on the previous save.
+* **Sharded state** — a DTensor leaf is gathered whole before it is
+  written (a collective: every rank of its mesh calls ``save``, and with
+  a default process group only its rank 0 writes), and ``restore`` puts
+  a leaf back under any target sharding: a DTensor target's mesh and
+  placements (``distribute_tensor``), a plain target's device.
 """
 
 from __future__ import annotations
@@ -33,9 +38,33 @@ from repro_torch import tree as _tree
 
 
 def _host(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the default process group,
+    or the one process when there is none."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _like(arr: np.ndarray, like):
+    """``arr`` placed as ``like`` lies: a DTensor's mesh and placements,
+    a tensor's device, else the CPU."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    t = torch.from_numpy(arr)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t.to(like.to_local().device),
+                                 like.device_mesh, like.placements)
+    return t.to(like.device if isinstance(like, torch.Tensor) else "cpu")
 
 
 class CheckpointManager:
@@ -52,6 +81,8 @@ class CheckpointManager:
     def save(self, step: int, state: Any, block: bool = False):
         names, leaves, _ = _tree.flatten_with_names(state)
         host = [_host(x) for x in leaves]
+        if not _writer():
+            return
         self.wait()
         if self.async_save and not block:
             self._thread = threading.Thread(
@@ -112,8 +143,10 @@ class CheckpointManager:
     def restore(self, target: Any, step: Optional[int] = None,
                 verify: bool = True):
         """Restore into the structure of ``target``: each leaf by its
-        name, in the saved dtype, on the device of ``target``'s leaf.
-        Returns (state, step); a checksum mismatch raises ``IOError``."""
+        name, in the saved dtype, where ``target``'s leaf lies (a
+        DTensor's mesh and placements, whatever the mesh the state was
+        saved from; a tensor's device).  Returns (state, step); a checksum
+        mismatch raises ``IOError``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -130,7 +163,5 @@ class CheckpointManager:
                 h = hashlib.sha256(arr.tobytes()).hexdigest()
                 if h != entry["sha256"]:
                     raise IOError(f"checksum mismatch for {name}")
-            device = like.device if isinstance(like, torch.Tensor) \
-                else "cpu"
-            out.append(torch.from_numpy(arr).to(device))
+            out.append(_like(arr, like))
         return _tree.unflatten(treedef, out), step

@@ -51,6 +51,11 @@ MATRICES = {
 }
 
 
+# Structured-QR benchmark shapes (paper Table 2).
+QR_SHAPES = [(10_000, 5_000), (20_000, 10_000)]
+QR_CPU_SHAPES = [(1_536, 768), (3_072, 1_536)]
+
+
 def matrix_seed(name: str, seed: int = 0) -> int:
     """Process-independent generator seed for a paper matrix."""
     return seed + zlib.crc32(name.encode()) % (2 ** 16)

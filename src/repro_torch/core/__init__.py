@@ -15,6 +15,8 @@ from repro_torch.core.coeffs import (
     qdwh_schedule_np,
     zolo_coeffs,
     zolo_coeffs_np,
+    zolo_fn_product,
+    zolo_fn_scalar,
     zolo_iter_count,
     zolo_schedule_np,
 )
@@ -42,6 +44,8 @@ from repro_torch.core.registry import (
     list_polar,
     register_eig,
     register_polar,
+    unregister_eig,
+    unregister_polar,
 )
 from repro_torch.core.structured_qr import (
     cholesky_qr2,

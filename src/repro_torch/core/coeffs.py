@@ -81,6 +81,24 @@ def zolo_l_update(l, c, mhat):
     return mhat * l * torch.prod((l2 + c_even) / (l2 + c_odd))
 
 
+def zolo_fn_scalar(x, c, a, mhat):
+    """Evaluate hat-Z_{2r+1}(x; l) in partial-fraction form (eq. 9/11)."""
+    x = elliptic._as_tensor(x)
+    c_odd = c[0::2]
+    terms = a / (x[..., None] ** 2 + c_odd)
+    return mhat * x * (1.0 + torch.sum(terms, dim=-1))
+
+
+def zolo_fn_product(x, c, mhat):
+    """Evaluate hat-Z_{2r+1}(x; l) in product form (eq. 8) — test oracle."""
+    x = elliptic._as_tensor(x)
+    c_even = c[1::2]
+    c_odd = c[0::2]
+    num = x[..., None] ** 2 + c_even
+    den = x[..., None] ** 2 + c_odd
+    return mhat * x * torch.prod(num / den, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # numpy/scipy backend (static schedules)
 # ---------------------------------------------------------------------------

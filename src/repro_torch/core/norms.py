@@ -22,7 +22,7 @@ planner's prescale alpha, so parity tests hand both packages the same one.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -50,16 +50,23 @@ def sigma_max_upper(a: torch.Tensor) -> torch.Tensor:
 
 def sigma_max_power(a: torch.Tensor, iters: int = 10, *,
                     v0: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    reduce: Optional[Callable] = None):
     """Power iteration on A^T A; sharp estimate of sigma_max (lower-biased,
     so callers wanting a bound multiply by a safety factor).
 
     ``v0`` is the start vector (shape (..., n)); without it a Gaussian
     one is drawn from ``generator`` — by default a fresh one seeded with 0
-    on ``a``'s device, so repeated calls agree."""
+    on ``a``'s device, so repeated calls agree.
+
+    ``reduce`` makes ``a`` one row block of a matrix split over ranks: it
+    sums a partial result over them (an all-reduce), and is applied to
+    each A^T (A v) — a contraction over rows — and to the final sum of
+    squares, so every rank gets the whole matrix's estimate."""
     n = a.shape[-1]
     if v0 is None:
-        if generator is None:
+        if generator is None and a.device.type != "meta":
+            # (a meta tensor's draw holds no data: no generator needed)
             generator = torch.Generator(device=a.device).manual_seed(0)
         v = torch.randn(a.shape[:-2] + (n,), generator=generator,
                         dtype=a.dtype, device=a.device)
@@ -71,10 +78,14 @@ def sigma_max_power(a: torch.Tensor, iters: int = 10, *,
     for _ in range(iters):
         w = torch.einsum("...mn,...n->...m", a, v)
         u = torch.einsum("...mn,...m->...n", a, w)
+        if reduce is not None:
+            u = reduce(u)
         v = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1,
                                                      keepdim=True), min=tiny)
-    return torch.linalg.vector_norm(torch.einsum("...mn,...n->...m", a, v),
-                                    dim=-1)
+    av = torch.einsum("...mn,...n->...m", a, v)
+    if reduce is None:
+        return torch.linalg.vector_norm(av, dim=-1)
+    return torch.sqrt(reduce(torch.sum(av * av, dim=-1)))
 
 
 def sigma_min_lower(x: torch.Tensor, iters: int = 8, safety: float = 0.5,

@@ -180,3 +180,12 @@ def list_polar() -> list:
 
 def list_eig() -> list:
     return sorted(_EIG)
+
+
+def unregister_polar(name: str) -> None:
+    """Remove a registration (tests / interactive reload)."""
+    _POLAR.pop(name, None)
+
+
+def unregister_eig(name: str) -> None:
+    _EIG.pop(name, None)

@@ -72,17 +72,20 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
 def zolo_pd_cuda(a, *, l0: Optional[float] = None, r: Optional[int] = None,
                  max_iters: int = 6, want_h: bool = False,
                  qr_mode: str = "cholqr2", qr_iters: int = 1,
-                 hermitian_source=None, schedule=None, hh_block: int = 32):
+                 hermitian_source=None, schedule=None, hh_block: int = 32,
+                 ops: Optional[_zolo.ZoloOps] = None):
     """Unrolled Zolo-PD (the contract of
     :func:`repro_torch.core.zolo.zolo_pd_static`) with the iteration's
     Gram products and r-term combine on K1 and K2 (a Householder
     iteration's structured QRs are torch ops; its combine is K2).
+    ``ops`` replaces the kernel bundle (a wrapper of
+    :func:`cuda_zolo_ops`, e.g. one that reduces over ranks).
     Returns (Q, H or None, PolarInfo)."""
     return _zolo.zolo_pd_static(
         a, l0=l0, r=r, max_iters=max_iters, want_h=want_h,
         qr_mode=qr_mode, qr_iters=qr_iters,
         hermitian_source=hermitian_source, schedule=schedule,
-        ops=cuda_zolo_ops(), hh_block=hh_block)
+        ops=cuda_zolo_ops() if ops is None else ops, hh_block=hh_block)
 
 
 def zolo_pd_cuda_dynamic(a, r: int = 3, *, alpha=None, l=None,

@@ -7,11 +7,13 @@ full forward, and the serving half (caches, prefill, decode).
 
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models.model import (
+    caches_axes,
     decode_step,
     forward,
     hidden_states,
     init_caches,
     init_params,
     param_count,
+    params_axes,
     prefill,
 )

@@ -15,6 +15,18 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 
+class MetaGenerator(torch.Generator):
+    """The initializers' abstract mode: a generator whose ``device`` is
+    ``meta``.  Handed to :func:`repro_torch.models.init_params` (or a
+    train step's ``init_state``), it builds every tensor at its shape and
+    dtype on the meta device, holding no data and drawing nothing — the
+    counterpart of ``jax.eval_shape`` over the reference's init."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,
                           dtype=F32):
     """N(0, 1) truncated to [-2, 2], times scale / sqrt(fan_in) with
@@ -92,6 +104,18 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, mlp_type: str, dtype):
         "wi": truncated_normal_init(gen, (d, ff), 1.0, dtype),
         "wo": truncated_normal_init(gen, (ff, d), 1.0, dtype),
     }
+
+
+def mlp_axes(mlp_type: str, stacked: bool):
+    """Logical axes of :func:`mlp_init`'s leaves (pure data)."""
+    lead = ("layers",) if stacked else ()
+    if mlp_type == "swiglu":
+        return {
+            "wi_gate": lead + ("embed", "mlp"),
+            "wi_up": lead + ("embed", "mlp"),
+            "wo": lead + ("mlp", "embed"),
+        }
+    return {"wi": lead + ("embed", "mlp"), "wo": lead + ("mlp", "embed")}
 
 
 def mlp_apply(params, x, mlp_type: str):

@@ -30,9 +30,11 @@ host.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import tree as _tree
+from repro_torch.dist.sharding import settle
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -59,9 +61,25 @@ def init_params(cfg, gen: torch.Generator):
     return params
 
 
+def params_axes(cfg):
+    """Logical axes of :func:`init_params`'s tree (pure data)."""
+    ax = {
+        "embed": ("vocab", "embed"),
+        "final_norm": None if cfg.norm_type == "nonparam_ln" else (None,),
+        "stages": T.stage_axes(cfg, stacked=True),
+        "rem": tuple(T.layer_axes(kind, cfg, stacked=False)
+                     for kind in cfg.remainder_blocks),
+    }
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    return ax
+
+
 def _embed_inputs(params, batch, cfg):
     """tokens (b, s_tok) [+ prefix embeds (b, n_prefix, d)] -> (b, s, d)."""
-    x = params["embed"][batch["tokens"].long()]
+    # an embedding lookup (not indexing), which DTensor runs
+    # vocabulary-parallel on a vocab-sharded table
+    x = settle(F.embedding(batch["tokens"].long(), params["embed"]))
     if cfg.num_prefix_embeds:
         prefix = batch["embeds"].to(x.dtype)
         x = torch.cat([prefix, x], dim=1)
@@ -152,6 +170,23 @@ def init_caches(cfg, batch: int, max_len: int, device=None):
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _caches_like(caches, x, cfg):
+    """``caches`` on ``x``'s mesh when ``x`` is a DTensor: placed by
+    :func:`caches_axes` under the active sharding rules, replicated
+    without any (zeros, the same on every rank: no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return caches
+    from repro_torch.dist import sharding as S
+
+    mesh = x.device_mesh
+    rules = S.current_rules() or S.LogicalRules({}, mesh=mesh)
+    return S.distribute_tree(
+        caches, S.tree_shardings(mesh, rules, caches_axes(cfg)),
+        src_data_rank=None)
+
+
 def _copy_into(dst, src):
     _tree.map(lambda d, s: d.copy_(s), dst, src)
 
@@ -168,7 +203,7 @@ def prefill(params, batch, cfg, max_len: int):
     b, s, _ = x.shape
     x, (stage_mixer_caches, rem_mixer), _ = backbone(
         params, x, _positions(x), cfg)
-    caches = init_caches(cfg, b, max_len, x.device)
+    caches = _caches_like(init_caches(cfg, b, max_len, x.device), x, cfg)
     for i in range(cfg.num_stages):
         for kind, mc, dst in zip(cfg.block_pattern,
                                  _stage(stage_mixer_caches, i),
@@ -213,3 +248,26 @@ def decode_step_(params, tokens, caches, cfg):
 
 def param_count(params) -> int:
     return sum(x.numel() for x in _tree.leaves(params))
+
+
+def caches_axes(cfg):
+    """Logical axes for :func:`init_caches`' tree (pure data)."""
+
+    def layer_axes(kind, stacked: bool):
+        lead = ("layers",) if stacked else ()
+        if kind == "attn":
+            return {"k": lead + ("cache_batch", None, "cache_heads", None),
+                    "v": lead + ("cache_batch", None, "cache_heads", None)}
+        if kind == "rglru":
+            return (lead + ("cache_batch", "state"),
+                    lead + ("cache_batch", None, "state"))
+        return (lead + ("cache_batch", "cache_heads", None, None),
+                lead + ("cache_batch", None, "state"))
+
+    return {
+        "stages": tuple(layer_axes(kind, True)
+                        for kind in cfg.block_pattern),
+        "rem": tuple(layer_axes(kind, False)
+                     for kind in cfg.remainder_blocks),
+        "pos": "REPLICATED",
+    }

@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import hint
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -34,6 +35,17 @@ def moe_init(gen: torch.Generator, cfg, dtype):
         "wi_gate": L.truncated_normal_init(gen, (e, d, ff), 1.0, dtype),
         "wi_up": L.truncated_normal_init(gen, (e, d, ff), 1.0, dtype),
         "wo": L.truncated_normal_init(gen, (e, ff, d), 1.0, dtype),
+    }
+
+
+def moe_axes(cfg, stacked: bool):
+    """Logical axes of :func:`moe_init`'s leaves (pure data)."""
+    lead = ("layers",) if stacked else ()
+    return {
+        "router": lead + ("embed", None),
+        "wi_gate": lead + ("experts", "embed", "expert_mlp"),
+        "wi_up": lead + ("experts", "embed", "expert_mlp"),
+        "wo": lead + ("experts", "expert_mlp", "embed"),
     }
 
 
@@ -76,12 +88,15 @@ def moe_apply(params, x, cfg):
     x_rep = xf[:, None].expand(t, k, d).reshape(t * k, d)
     buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((flat_e, pos_c), x_rep, accumulate=True)
+    buf = hint(buf, "experts", None, None)
     eb = buf[:, :cap]
 
     g = torch.bmm(eb, params["wi_gate"])
     u = torch.bmm(eb, params["wi_up"])
     h = F.silu(g.to(F32)).to(x.dtype) * u
+    h = hint(h, "experts", None, "expert_mlp")
     y = torch.bmm(h, params["wo"])
+    y = hint(y, "experts", None, None)
 
     yf = F.pad(y, (0, 0, 0, 1))  # restore the trash row (zeros)
     out_slots = yf[flat_e, pos_c] * keep[:, None].to(x.dtype)  # (t*k, d)

@@ -44,6 +44,20 @@ def rglru_init(gen: torch.Generator, cfg, dtype):
     }
 
 
+def rglru_axes(cfg, stacked: bool):
+    """Logical axes of :func:`rglru_init`'s leaves (pure data)."""
+    lead = ("layers",) if stacked else ()
+    return {
+        "in_x": lead + ("embed", "state"),
+        "in_gate": lead + ("embed", "state"),
+        "conv_w": lead + (None, "state"),
+        "w_a": lead + ("state", None),
+        "w_i": lead + ("state", None),
+        "lam": lead + (None,),
+        "out_proj": lead + ("state", "embed"),
+    }
+
+
 def _gates(params, xr):
     """a_t and the gated input, both f32.  xr: (b, s, dr)."""
     r = torch.sigmoid((xr @ params["w_a"]).to(F32))

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as S
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -41,6 +42,20 @@ def ssd_init(gen: torch.Generator, cfg, dtype):
         "dt_bias": torch.zeros((h,), dtype=F32, device=dev),
         "norm_scale": torch.zeros((di,), dtype=F32, device=dev),
         "out_proj": L.truncated_normal_init(gen, (di, d), 1.0, dtype),
+    }
+
+
+def ssd_axes(cfg, stacked: bool):
+    """Logical axes of :func:`ssd_init`'s leaves (pure data)."""
+    lead = ("layers",) if stacked else ()
+    return {
+        "in_proj": lead + ("embed", "ssd_in"),
+        "conv_w": lead + (None, "state"),
+        "a_log": lead + (None,),
+        "d_skip": lead + (None,),
+        "dt_bias": lead + (None,),
+        "norm_scale": lead + (None,),
+        "out_proj": lead + ("state", "embed"),
     }
 
 
@@ -120,6 +135,38 @@ def ssd_scan(x, dt, a, b, c, chunk: int, init_state=None):
     return y[:, :s_orig], state
 
 
+def _scan_on_local_blocks(x, dt, a, b, c, chunk: int, init_state=None):
+    """:func:`ssd_scan` of DTensors on each rank's local blocks: the scan
+    is independent over the batch and the heads, so x (bt, s, h, p) and
+    dt keep those shards (any other is gathered), the rates ``a`` follow
+    the heads, B and C the batch, and the scan runs on plain tensors.
+    Where ``a`` (or B, C) is replicated over a mesh dimension that x is
+    split over, each rank's gradient of it is a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    xp = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+          for p in x.placements]
+    bp = [p if p.is_shard(0) else Replicate() for p in xp]
+    ap = [Shard(0) if p.is_shard(2) else Replicate() for p in xp]
+    sp = [Shard(1) if p.is_shard(2) else p for p in xp]  # (bt, h, p, n)
+
+    def share(ps):
+        return [Partial() if q.is_shard() and p.is_replicate() else p
+                for q, p in zip(xp, ps)]
+
+    st = None if init_state is None else S.local_block(init_state, mesh, sp)
+    y, state = ssd_scan(S.local_block(x, mesh, xp),
+                        S.local_block(dt, mesh, xp),
+                        S.local_block(a, mesh, ap, share(ap)),
+                        S.local_block(b, mesh, bp, share(bp)),
+                        S.local_block(c, mesh, bp, share(bp)), chunk,
+                        init_state=st)
+    bt, s, h, p = x.shape
+    return (S.from_local_block(y, mesh, xp, x.shape),
+            S.from_local_block(state, mesh, sp, (bt, h, p, b.shape[-1])))
+
+
 def _in_proj(params, x, cfg, conv_cache):
     """z, the conv'd (x, B, C) and dt_raw of the input projection, and
     the conv's new tail."""
@@ -155,9 +202,12 @@ def ssd_forward(params, x, cfg, *, init_state=None, conv_cache=None):
                                                      conv_cache)
     dt = _softplus(dt_raw.to(F32) + params["dt_bias"][None, None])
     a = torch.exp(params["a_log"])  # (h,) positive rates
+    from torch.distributed.tensor import DTensor
+
     xh = xin.reshape(b, s, h, p)
-    y, state = ssd_scan(xh, dt, a, bmat, cmat, cfg.ssm_chunk,
-                        init_state=init_state)
+    scan = _scan_on_local_blocks if isinstance(xh, DTensor) else ssd_scan
+    y, state = scan(xh, dt, a, bmat, cmat, cfg.ssm_chunk,
+                    init_state=init_state)
     y = y + params["d_skip"][None, None, :, None] * xh.to(F32)
     y = y.reshape(b, s, di).to(x.dtype)
     return _out_proj(params, y, z, x), (state, conv_tail)

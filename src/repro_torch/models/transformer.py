@@ -13,6 +13,7 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import settle
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -84,6 +85,27 @@ def layer_init(gen: torch.Generator, kind: str, cfg, dtype):
     return p
 
 
+_MIXER_AXES = {"attn": ATT.attn_axes, "rglru": RGL.rglru_axes,
+               "ssd": SSD.ssd_axes}
+
+
+def layer_axes(kind: str, cfg, stacked: bool):
+    """Logical axes of :func:`layer_init`'s leaves (pure data)."""
+    lead = ("layers",) if stacked else ()
+    ax: Dict[str, Any] = {"norm1": None if cfg.norm_type == "nonparam_ln"
+                          else lead + (None,)}
+    if kind in _MIXER_AXES:
+        ax["mixer"] = _MIXER_AXES[kind](cfg, stacked)
+    if cfg.mlp_type != "none":
+        ax["norm2"] = None if cfg.norm_type == "nonparam_ln" \
+            else lead + (None,)
+        if cfg.num_experts:
+            ax["mlp"] = MOE.moe_axes(cfg, stacked)
+        else:
+            ax["mlp"] = L.mlp_axes(cfg.mlp_type, stacked)
+    return ax
+
+
 def _mlp(params, x, cfg):
     """x + MLP(norm2(x)), and the MoE aux loss (None for a dense MLP)."""
     if cfg.mlp_type == "none":
@@ -91,8 +113,8 @@ def _mlp(params, x, cfg):
     h2 = L.norm(x, params["norm2"], cfg.norm_type)
     if cfg.num_experts:
         out, aux = MOE.moe_apply(params["mlp"], h2, cfg)
-        return x + out, aux
-    return x + L.mlp_apply(params["mlp"], h2, cfg.mlp_type), None
+        return x + settle(out), aux
+    return x + settle(L.mlp_apply(params["mlp"], h2, cfg.mlp_type)), None
 
 
 def layer_forward(params, kind: str, x, positions, cfg):
@@ -100,7 +122,7 @@ def layer_forward(params, kind: str, x, positions, cfg):
     aux)."""
     h = L.norm(x, params["norm1"], cfg.norm_type)
     mix, cache_out = MIXERS[kind].forward(params["mixer"], h, positions, cfg)
-    x, aux = _mlp(params, x + mix, cfg)
+    x, aux = _mlp(params, x + settle(mix), cfg)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=x.device)
     return x, cache_out, aux
@@ -130,6 +152,11 @@ def prefill_layer_cache(kind: str, cfg, max_len, mixer_cache, dtype):
 
 def stage_init(gen: torch.Generator, cfg, dtype):
     return tuple(layer_init(gen, kind, cfg, dtype)
+                 for kind in cfg.block_pattern)
+
+
+def stage_axes(cfg, stacked: bool):
+    return tuple(layer_axes(kind, cfg, stacked)
                  for kind in cfg.block_pattern)
 
 

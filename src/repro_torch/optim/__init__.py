@@ -2,13 +2,18 @@
 step) + AdamW, the LR schedule, and the gradient-compression helpers.
 
 Port of ``repro.optim``: :func:`lowrank_truncate` (the one-shot rank-k
-truncation through the partial-spectrum planner),
-:func:`compressed_psum` (the all-reduce of rank-k gradient factors),
-:class:`ZoloMuon` and :func:`warmup_cosine`.  The PowerSGD helpers are
-not yet ported.
+truncation through the partial-spectrum planner), the PowerSGD helpers
+and :func:`compressed_psum` (the all-reduce of rank-k gradient factors),
+:class:`ZoloMuon` and :func:`warmup_cosine`.
 """
 
-from repro_torch.optim.compression import compressed_psum, lowrank_truncate
+from repro_torch.optim.compression import (
+    compress_decompress,
+    compressed_psum,
+    init_compression_state,
+    lowrank_factor,
+    lowrank_truncate,
+)
 from repro_torch.optim.muon import (
     MuonConfig,
     ZoloMuon,
@@ -17,5 +22,7 @@ from repro_torch.optim.muon import (
 )
 from repro_torch.optim.schedule import warmup_cosine
 
-__all__ = ["MuonConfig", "ZoloMuon", "compressed_psum", "lowrank_truncate",
-           "muon_labels", "orthogonalize", "warmup_cosine"]
+__all__ = ["MuonConfig", "ZoloMuon", "compress_decompress",
+           "compressed_psum", "init_compression_state", "lowrank_factor",
+           "lowrank_truncate", "muon_labels", "orthogonalize",
+           "warmup_cosine"]

@@ -1,15 +1,18 @@
 """Low-rank gradient compression.
 
 Port of ``repro/optim/compression.py``: :func:`lowrank_truncate` (the
-one-shot truncation through the partial-spectrum planner) and
-:func:`compressed_psum` (the PowerSGD-style all-reduce of the rank-k
-factors instead of the gradient).  The PowerSGD helpers of the optimizer
-(``lowrank_factor``, ``compress_decompress``, ``init_compression_state``)
-come with ZoloMuon and are not ported yet.
+one-shot truncation through the partial-spectrum planner), the PowerSGD
+helpers (:func:`lowrank_factor`, :func:`compress_decompress`,
+:func:`init_compression_state`, its random ``q`` drawn from a
+``torch.Generator``) and :func:`compressed_psum` (the PowerSGD-style
+all-reduce of the rank-k factors instead of the gradient).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 import torch.distributed as dist
 
 from repro_torch.core.structured_qr import cholesky_qr2 as _cholqr2
@@ -38,6 +41,36 @@ def lowrank_truncate(g, rank: int, *, strategy: str = "auto",
         g.shape[-2:], g.dtype, device=g.device)
     u, s, vh = plan.topk(g) if g.ndim == 2 else plan.topk_batched(g)
     return u * s[..., None, :], vh.mT
+
+
+def lowrank_factor(g, q_prev, rank: int):
+    """One subspace-iteration step: G ~= P Q^T, P orthonormal (m, k)."""
+    p = g @ q_prev
+    p = _cholqr2(p)
+    q = g.mT @ p
+    return p, q
+
+
+def compress_decompress(g, err, q_prev, rank: int):
+    """Error-feedback low-rank pass.  Returns (g_hat, new_err, q_new)."""
+    g_fb = g + err
+    p, q = lowrank_factor(g_fb, q_prev, rank)
+    g_hat = p @ q.mT
+    return g_hat, g_fb - g_hat, q
+
+
+def init_compression_state(param, rank: int,
+                           generator: Optional[torch.Generator] = None):
+    """{"err": zeros like ``param`` (f32), "q": (..., n, rank) f32
+    Gaussian} on ``param``'s device; ``q`` is drawn from ``generator``
+    (a fresh one seeded with 0 on that device when None)."""
+    n = param.shape[-1]
+    if generator is None:
+        generator = torch.Generator(device=param.device).manual_seed(0)
+    q = torch.randn(tuple(param.shape[:-2]) + (n, rank), generator=generator,
+                    dtype=torch.float32, device=param.device)
+    return {"err": torch.zeros(param.shape, dtype=torch.float32,
+                               device=param.device), "q": q}
 
 
 def compressed_psum(g, err, q_prev, rank: int, group):

@@ -37,6 +37,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.dist.sharding import hint
 
 F32 = torch.float32
 
@@ -79,16 +80,18 @@ def _ns5(x, steps: int = 5):
     return x
 
 
-def polar_method(method: str, polar_dtype: str) -> str:
+def polar_method(method: str, polar_dtype: str, device=None) -> str:
     """The solver backend of ``method`` at ``polar_dtype``: the kernel
     form of the static Zolo schedule for itemsize <= 4, the torch-op form
-    for f64; ``qdwh_static`` for "qdwh"."""
+    for f64 and on the meta device (an abstract run, whose shapes are the
+    kernels'); ``qdwh_static`` for "qdwh"."""
     if method == "qdwh":
         return "qdwh_static"
     if method != "zolo":
         raise ValueError(f"no polar plan for method {method!r}")
     itemsize = getattr(torch, polar_dtype).itemsize
-    return "zolo_cuda" if itemsize <= 4 else "zolo_static"
+    meta = device is not None and torch.device(device).type == "meta"
+    return "zolo_cuda" if itemsize <= 4 and not meta else "zolo_static"
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,7 +108,7 @@ def _polar_plan(method: str, rows: int, cols: int, r: int, l0: float,
     after the first reuses one schedule."""
     from repro_torch import solver as _solver
 
-    backend = polar_method(method, polar_dtype)
+    backend = polar_method(method, polar_dtype, device)
     if method == "zolo":
         cfg = _solver.SvdConfig(method=backend, r=r, l0=l0,
                                 max_iters=max_iters, qr_mode="cholqr2",
@@ -119,17 +122,75 @@ def _polar_plan(method: str, rows: int, cols: int, r: int, l0: float,
                         device=device)
 
 
+def _polar_sharded(plan, m2):
+    """Q of a DTensor stack (s, rows, cols), solved on this rank's local
+    blocks, since the engine takes plain tensors.  Q comes back a DTensor
+    on the placements it was solved on.
+
+    The stack keeps its sharding (each rank solves its slice: no
+    collective), and so does the long dimension over "data" (the
+    ("opt_stack", "opt_rows") placement of the hints) for a static Zolo
+    plan; any other sharding is gathered first.  Where the long dimension
+    is split over "data",
+    every rank holds a block of it and the plan's row-split path reduces
+    the prescale and each Gram over the "data" group (K1 on the block,
+    one all-reduce of the (n, n) Gram, K2 row-local).  Where it is not (a
+    one-rank "data" axis), the block is the whole matrix and the solve is
+    the unsharded one."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = m2.device_mesh
+    names = list(mesh.mesh_dim_names)
+    long_dim = 1 if m2.shape[1] >= m2.shape[2] else 2
+    rows_ok = plan.method in ("zolo_static", "zolo_cuda")
+    target = [p if p.is_shard(0) or (rows_ok and p.is_shard(long_dim)
+                                     and n == "data")
+              else Replicate() for n, p in zip(names, m2.placements)]
+    if target != list(m2.placements):
+        m2 = m2.redistribute(mesh, target)
+    local = m2.to_local()
+    data_dim = names.index("data") if "data" in names else None
+    split = data_dim is not None and target[data_dim].is_shard(long_dim)
+    if local.shape[0] == 0:
+        q = local.clone()
+    elif split:
+        q = plan._polar_rows_batched(local, group=mesh.get_group(data_dim),
+                                     index=mesh.get_local_rank(data_dim))
+    else:
+        q, _, _ = plan.polar_batched(local, want_h=False)
+    return DTensor.from_local(q, mesh, m2.placements, run_check=False,
+                              shape=m2.shape, stride=m2.stride())
+
+
 def orthogonalize(m, method: str = "zolo", r: int = 2, l0: float = 1e-3,
                   max_iters: int = 4, polar_dtype: str = "float32"):
-    """Batched msign/polar factor of m (..., rows, cols), on m's device."""
+    """Batched msign/polar factor of m (..., rows, cols), on m's device.
+
+    Under :func:`repro_torch.dist.activation_hints` the stack is placed
+    as the reference places it (``repro/optim/muon.py:125-140``): stack
+    over "opt_stack", the long dimension over "opt_rows", and the factor
+    comes back a DTensor on those placements."""
+    from torch.distributed.tensor import DTensor
+
     if method == "ns5":
         return _ns5(m)
     lead = m.shape[:-2]
     rows, cols = m.shape[-2:]
     m2 = m.reshape((-1, rows, cols)).to(getattr(torch, polar_dtype))
+    # stack over "model" (expert/layer-major), long dim over "data": the
+    # Gram contracts over the sharded rows (one all-reduce of (n, n)),
+    # the triangular solves are row-local, only the small Cholesky
+    # replicates
+    axes = ("opt_stack", "opt_rows", None) if rows >= cols else \
+        ("opt_stack", None, "opt_rows")
+    m2 = hint(m2, *axes)
     plan = _polar_plan(method, rows, cols, r, l0, max_iters, polar_dtype,
-                       str(m.device))
-    q, _, _ = plan.polar_batched(m2, want_h=False)
+                       str(m2.device))
+    if isinstance(m2, DTensor):
+        q = _polar_sharded(plan, m2)
+    else:
+        q, _, _ = plan.polar_batched(m2, want_h=False)
+    q = hint(q, *axes)
     return q.reshape(lead + (rows, cols)).to(m.dtype)
 
 
@@ -145,6 +206,30 @@ def muon_labels(params, min_dim: int = 64):
     return _tree.map_with_names(f, params)
 
 
+def _scalar_zero(like, dtype=F32):
+    """A 0-d zero on ``like``'s device, replicated on its mesh when
+    ``like`` is a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import zeros as dt_zeros
+
+    if isinstance(like, DTensor):
+        mesh = like.device_mesh
+        return dt_zeros((), dtype=dtype, device_mesh=mesh,
+                        placements=[Replicate()] * mesh.ndim)
+    return torch.zeros((), dtype=dtype, device=like.device)
+
+
+def _on_placements(o, p):
+    """``o`` moved onto ``p``'s placements when both are DTensors (the
+    factor comes back on the optimizer's reshard)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(o, DTensor) and isinstance(p, DTensor) and \
+            tuple(o.placements) != tuple(p.placements):
+        return o.redistribute(p.device_mesh, p.placements)
+    return o
+
+
 @dataclasses.dataclass
 class ZoloMuon:
     """Optimizer over a params tree: Muon (Zolo-PD) for matrices, AdamW
@@ -155,20 +240,21 @@ class ZoloMuon:
     labels: Any  # bool tree matching params (muon_labels)
 
     def init(self, params):
+        """Zeroed state on the parameters' devices; a DTensor parameter's
+        moments carry its placements, and a Muon leaf's scalar
+        placeholder is replicated on its mesh (``state_axes_for_params``
+        gives it "REPLICATED")."""
         flags = _tree.leaves(self.labels)
         p_leaves, tdef = _tree.flatten(params)
-        mu = _tree.unflatten(tdef, [
-            torch.zeros(p.shape, dtype=F32, device=p.device)
-            for p in p_leaves])
+        mu = _tree.unflatten(tdef, [torch.zeros_like(p, dtype=F32)
+                                    for p in p_leaves])
         # second moment only for Adam leaves (Muon leaves keep a scalar
         # placeholder to avoid doubling optimizer memory)
         nu = _tree.unflatten(tdef, [
-            torch.zeros(() if is_muon else p.shape, dtype=F32,
-                        device=p.device)
+            _scalar_zero(p) if is_muon else torch.zeros_like(p, dtype=F32)
             for p, is_muon in zip(p_leaves, flags)])
-        return {"mu": mu, "nu": nu,
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=p_leaves[0].device)}
+        return {"mu": mu, "nu": nu, "count": _scalar_zero(p_leaves[0],
+                                                          torch.int32)}
 
     @torch.no_grad()
     def update(self, grads, state, params, lr_scale=1.0):
@@ -195,8 +281,9 @@ class ZoloMuon:
             g32 = g.to(F32)
             if is_muon:
                 mu_n = c.beta * mu + g32
-                o = orthogonalize(mu_n, c.method, c.r, c.l0, c.max_iters,
-                                  polar_dtype=c.polar_dtype)
+                o = _on_placements(
+                    orthogonalize(mu_n, c.method, c.r, c.l0, c.max_iters,
+                                  polar_dtype=c.polar_dtype), p)
                 rows, cols = p.shape[-2:]
                 scale = 0.2 * (max(rows, cols) ** 0.5)
                 step = (c.lr * lr_scale) * scale * o

@@ -505,20 +505,25 @@ class SvdPlan:
 
     # --- implementations ----------------------------------------------
 
-    def _prescale(self, x):
+    def _prescale(self, x, reduce=None):
         if self.config.scale == "power":
             # sharp 1.05x power-iteration bound (the ZoloMuon setting)
             alpha = 1.05 * _norms.sigma_max_power(
-                x, iters=8, v0=self.start_vector) + 1e-12
+                x, iters=8, v0=self.start_vector, reduce=reduce) + 1e-12
         else:  # "bound": guaranteed upper bound
             alpha = _norms.sigma_max_upper(x)
         return (x / alpha.to(x.dtype)).to(x.dtype), alpha
 
-    def _polar_canonical(self, a, want_h=_UNSET, extra=None):
+    def _polar_canonical(self, a, want_h=_UNSET, extra=None,
+                         transposed=None, reduce=None):
         """Run the backend on the canonical (m >= n) orientation.
 
         ``extra``: per-call backend kwargs (:func:`plan_for_call`'s
         runtime ones); ``want_h`` left unset keeps the backend's default.
+        ``transposed`` (None: from ``a``'s shape) fixes the orientation
+        and ``reduce`` sums the prescale's row contractions over ranks,
+        for a block of a matrix split over ranks
+        (:meth:`_polar_rows_batched`).
         Returns (q, h, info, transposed, alpha, out_dtype) with q/h still
         canonical and h of the *scaled* input when ``alpha`` is not None.
         """
@@ -527,7 +532,10 @@ class SvdPlan:
             kw.update(extra)
         if want_h is not _UNSET:
             kw["want_h"] = want_h
-        a_work, transposed = _zolo.polar_canonical(a)
+        if transposed is None:
+            a_work, transposed = _zolo.polar_canonical(a)
+        else:
+            a_work = a.mT.contiguous() if transposed else a
         out_dtype = a_work.dtype
         if self.resolution.compute_dtype is not None:
             a_work = a_work.to(self.resolution.compute_dtype)
@@ -536,16 +544,17 @@ class SvdPlan:
                 and not self._spec.is_oracle):
             # precomputed-schedule backends assume sigma_max <= 1; dynamic
             # backends estimate their own alpha on the device
-            a_work, alpha = self._prescale(a_work)
+            a_work, alpha = self._prescale(a_work, reduce)
         if self.mode == "grouped":
             q, h, info = self._spec.grouped_fn(a_work, mesh=self.mesh, **kw)
         else:
             q, h, info = self._spec.fn(a_work, **kw)
         return q, h, info, transposed, alpha, out_dtype
 
-    def _polar_impl(self, a, want_h=_UNSET, extra=None):
+    def _polar_impl(self, a, want_h=_UNSET, extra=None, transposed=None,
+                    reduce=None):
         q, h, info, transposed, alpha, out_dtype = \
-            self._polar_canonical(a, want_h, extra)
+            self._polar_canonical(a, want_h, extra, transposed, reduce)
         if h is not None and alpha is not None:
             h = h * alpha.to(h.dtype)
         if transposed:
@@ -679,6 +688,49 @@ class SvdPlan:
         want_h = bool(want_h)
         return self._batched(lambda x: self._polar_impl(x, want_h=want_h),
                              a)
+
+    def _polar_rows_batched(self, a, *, group, index: int):
+        """Internal: Q of a stack (s, ., .) of blocks of the long
+        dimension, split over the ranks of ``group``: rows of an (m >= n)
+        plan, columns of an (m < n) one; Q comes back in the same blocks.
+        Every rank of ``group`` calls it with the same stack length, at
+        its ``index`` in the group.  ZoloMuon's sharded update runs it.
+
+        The port's stand-in for what GSPMD does to the reference's
+        row-sharded Muon solve (``repro/optim/muon.py:125-140``): the
+        prescale's power iteration and every Gram of the engine reduce
+        over ``group`` (:func:`repro_torch.dist.sep_reduce_ops`: K1 on the
+        block, one all-reduce of the (n, n) Gram, the shift one-hot on
+        ``index`` 0), the Cholesky factors replicate and the solves and
+        the combine (K2) stay row-local.  A static Zolo plan only."""
+        import torch.distributed as dist
+
+        from repro_torch.core import zolo_cuda as _zolo_cuda
+        from repro_torch.dist import grouped_ops as _gops
+
+        if self.method not in ("zolo_static", "zolo_cuda"):
+            raise ValueError(f"a row-split polar solve takes a static Zolo "
+                             f"plan (zolo_static, zolo_cuda), not "
+                             f"{self.method!r}")
+        m, n = self.shape
+        if a.ndim != 3 or (a.shape[-1] != n if m >= n else a.shape[-2] != m):
+            raise ValueError(f"plan built for shape {self.shape} got a "
+                             f"block stack {tuple(a.shape)}")
+        if a.shape[0] == 0:
+            return a.clone()
+        kernels = self.method == "zolo_cuda" and a.device.type == "cuda"
+        base = _zolo_cuda.cuda_zolo_ops() if kernels else _zolo.DEFAULT_OPS
+        extra = (("ops", _gops.sep_reduce_ops(base, group=group,
+                                               sep_index=index)),)
+
+        def reduce(t):
+            dist.all_reduce(t, group=group)
+            return t
+
+        return torch.stack([
+            self._polar_impl(a[i], want_h=False, extra=extra,
+                             transposed=m < n, reduce=reduce)[0]
+            for i in range(a.shape[0])])
 
 
 def plan(config: SvdConfig, shape, dtype, device=None,

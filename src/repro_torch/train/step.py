@@ -6,18 +6,29 @@ computed in sequence chunks against the vocabulary projection so full
 to ``cfg.dtype`` for the forward; gradients come from autograd; the
 global-norm clip stays on the device (no host read); every 2-D weight's
 update is orthogonalized by Zolo-PD (:mod:`repro_torch.optim.muon`).
+
+Sharded, the state is placed by ``tree_shardings(arch_rules(...),
+state_axes_for_params(...))`` (DTensors on a ``DeviceMesh``) and the step
+runs under :func:`repro_torch.dist.activation_hints`: the bf16 casts and
+the gradients are pinned to the parameters' placements, as the
+reference's hints pin them, so the data-parallel gradient reduction is a
+reduce-scatter.  The model builds plain-tensor constants (positions,
+RoPE tables, masks, zero accumulators); a step on DTensors runs under
+``implicit_replication()``, which treats them as replicated — they are
+the same on every rank.  The metrics come back as plain tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tree as _tree
+from repro_torch.dist.sharding import hint_tree, settle
 from repro_torch.models import model as M
 from repro_torch.optim.muon import MuonConfig, ZoloMuon, muon_labels
 from repro_torch.optim.schedule import warmup_cosine
@@ -35,30 +46,90 @@ class TrainState:
     opt: Any
 
 
+def train_state_axes(cfg):
+    """Logical axes for the full train state (params + optimizer mirrors).
+
+    ``nu`` mirrors params structurally, but Muon-labelled leaves hold
+    scalar placeholders — :func:`state_axes_for_params` fixes their axes
+    to "REPLICATED"."""
+    pax = M.params_axes(cfg)
+    rep = "REPLICATED"
+    return TrainState(step=rep, params=pax,
+                      opt={"mu": pax, "nu": pax, "count": rep})
+
+
+def state_axes_for_params(cfg, params):
+    """:func:`train_state_axes` with ``nu``'s axes matching the leaves'
+    ranks (scalar placeholders on Muon leaves get "REPLICATED")."""
+    axes = train_state_axes(cfg)
+    labels = muon_labels(params)
+    axes.opt["nu"] = _tree.map(
+        lambda is_muon, ax: "REPLICATED" if is_muon else ax,
+        labels, axes.opt["mu"])
+    return axes
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _replication(tree):
+    """``implicit_replication()`` when ``tree`` holds DTensors (plain
+    constants then mix with them as replicated), else a null context."""
+    if any(_is_dtensor(x) for x in _tree.leaves(tree)):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _fsdp_gather(p):
+    """A DTensor parameter gathered over the "data" mesh dimension for
+    its use (FSDP), its other placements kept; in the backward its
+    gradient's partial sum over "data" reduce-scatters back onto the
+    shard."""
+    if not _is_dtensor(p):
+        return p
+    names = p.device_mesh.mesh_dim_names
+    if "data" not in names:
+        return p
+    from torch.distributed.tensor import Replicate
+
+    i = names.index("data")
+    if not p.placements[i].is_shard():
+        return p
+    placements = list(p.placements)
+    placements[i] = Replicate()
+    return p.redistribute(p.device_mesh, placements)
+
+
+def _plain(x):
+    """A metric as a plain tensor (a replicated DTensor's value)."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
 def chunked_ce_loss(x, w, labels, *, chunk: int = 512,
                     softcap: float = 0.0, z_loss: float = 1e-4):
     """Cross entropy over seq chunks.  x: (b, s, d); w: (d, v);
     labels: (b, s) integer (-1 = masked)."""
-    b, s, d = x.shape
-    nc = max(1, -(-s // chunk))
-    pad = nc * chunk - s
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
-    xc = x.reshape(b, nc, -1, d)
-    lc = labels.reshape(b, nc, -1)
+    s = x.shape[1]
+    # sliced chunks, the last one short where chunk does not divide s
+    # (no padding: a DTensor's pad of a batch-sharded tensor fails)
+    chunks = [(x[:, i:i + chunk], labels[:, i:i + chunk])
+              for i in range(0, max(s, 1), chunk)]
 
     tot = torch.zeros((), dtype=F32, device=x.device)
     cnt = torch.zeros((), dtype=F32, device=x.device)
-    for i in range(nc):
-        xs = xc[:, i]
-        ls = lc[:, i]
+    for xs, ls in chunks:
         logits = (xs @ w).to(F32)
         if softcap:
             logits = softcap * torch.tanh(logits / softcap)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(
-            logits, torch.clamp(ls, min=0).long()[..., None], dim=-1)[..., 0]
+        gold = settle(torch.take_along_dim(
+            logits, torch.clamp(ls, min=0).long()[..., None], dim=-1))[..., 0]
         mask = (ls >= 0).to(F32)
         nll = (logz - gold + z_loss * logz * logz) * mask
         tot = tot + nll.sum()
@@ -92,6 +163,10 @@ def make_train_step(cfg, muon_cfg: MuonConfig, *,
         cast = _tree.map(
             lambda p: p.to(compute_dtype)
             if p.dtype == F32 and p.ndim >= 2 else p, params)
+        # pin the bf16 copies to the master placements: FSDP gathers then
+        # move half the bytes (bf16, not f32)
+        cast = hint_tree(cast, M.params_axes(cfg))
+        cast = _tree.map(_fsdp_gather, cast)
         x, aux = M.hidden_states(cast, batch, cfg)
         w = cast["embed"].mT if cfg.tie_embeddings else cast["lm_head"]
         p = cfg.num_prefix_embeds
@@ -103,6 +178,10 @@ def make_train_step(cfg, muon_cfg: MuonConfig, *,
         return loss + aux_weight * aux, loss, aux
 
     def train_step(state, batch):
+        with _replication(state.params):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         p_leaves, tdef = _tree.flatten(state.params)
         leaves = [p.detach().requires_grad_() for p in p_leaves]
         with torch.enable_grad():
@@ -110,6 +189,11 @@ def make_train_step(cfg, muon_cfg: MuonConfig, *,
         g_leaves = torch.autograd.grad(total, leaves)
         del leaves, total
         with torch.no_grad():
+            # under activation hints: pin grads to the param placements, so
+            # the data-parallel reduction is a reduce-scatter (ZeRO-2
+            # shape) instead of an all-reduce and a local slice
+            g_leaves = _tree.leaves(hint_tree(
+                _tree.unflatten(tdef, list(g_leaves)), M.params_axes(cfg)))
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
                                    for g in g_leaves))
             clip = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -123,8 +207,9 @@ def make_train_step(cfg, muon_cfg: MuonConfig, *,
                                            lr_scale=lr_scale)
         new_state = TrainState(step=state.step + 1, params=params,
                                opt=opt_state)
-        metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
-                   "grad_norm": gnorm, "lr_scale": lr_scale}
+        metrics = {"loss": _plain(loss.detach()),
+                   "aux_loss": _plain(aux.detach()),
+                   "grad_norm": _plain(gnorm), "lr_scale": _plain(lr_scale)}
         return new_state, metrics
 
     return init_state, train_step

@@ -15,13 +15,17 @@ These helpers walk them as ``jax.tree_util`` does:
 * anything else is a leaf.
 
 A leaf's name is its key path joined by ``/``, as
-``repro.checkpoint.manager._tree_paths`` names it.
+``repro.checkpoint.manager._tree_paths`` names it.  ``is_leaf`` stops the
+walk at a node it accepts, as ``jax.tree_util``'s does (the sharding
+layer's axes trees hold per-dimension tuples of names as leaves), and
+:func:`map` walks its further trees only as deep as the first, so a tree
+of arrays pairs with an axes tree whose leaves are tuples.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,28 +62,56 @@ def _node(tree) -> Tuple[str, Any, list, list]:
     return "leaf", None, [], []
 
 
-def _flatten(tree, prefix, names, leaves) -> TreeDef:
-    kind, meta, child_names, children = _node(tree)
+def _flatten(tree, prefix, names, leaves, is_leaf) -> TreeDef:
+    if is_leaf is not None and is_leaf(tree):
+        kind, meta, child_names, children = "leaf", None, [], []
+    else:
+        kind, meta, child_names, children = _node(tree)
     if kind == "leaf":
         names.append("/".join(prefix))
         leaves.append(tree)
         return TreeDef("leaf")
     return TreeDef(kind, meta, tuple(
-        _flatten(c, prefix + (n,), names, leaves)
+        _flatten(c, prefix + (n,), names, leaves, is_leaf)
         for n, c in zip(child_names, children)))
 
 
-def flatten_with_names(tree) -> Tuple[List[str], list, TreeDef]:
+def flatten_with_names(tree, is_leaf: Optional[Callable] = None
+                       ) -> Tuple[List[str], list, TreeDef]:
     """(names, leaves, treedef), leaves in the reference's order."""
     names: List[str] = []
     leaves: list = []
-    treedef = _flatten(tree, (), names, leaves)
+    treedef = _flatten(tree, (), names, leaves, is_leaf)
     return names, leaves, treedef
 
 
-def flatten(tree) -> Tuple[list, TreeDef]:
-    _, leaves, treedef = flatten_with_names(tree)
+def flatten(tree, is_leaf: Optional[Callable] = None
+            ) -> Tuple[list, TreeDef]:
+    _, leaves, treedef = flatten_with_names(tree, is_leaf)
     return leaves, treedef
+
+
+def flatten_up_to(treedef: TreeDef, tree) -> list:
+    """The subtrees of ``tree`` at ``treedef``'s leaf positions (``tree``
+    must have ``treedef``'s structure down to them; below a leafless node
+    of ``treedef`` it may hold anything, as ``jax.tree.map`` allows)."""
+    out: list = []
+
+    def walk(td: TreeDef, node):
+        if td.kind == "leaf":
+            out.append(node)
+            return
+        if td.num_leaves == 0:  # nothing to pair (an empty "rem" tuple)
+            return
+        kind, meta, _, children = _node(node)
+        if kind != td.kind or meta != td.meta or \
+                len(children) != len(td.children):
+            raise ValueError("tree structures differ")
+        for c, child in zip(td.children, children):
+            walk(c, child)
+
+    walk(treedef, tree)
+    return out
 
 
 def leaves(tree) -> list:
@@ -110,16 +142,13 @@ def unflatten(treedef: TreeDef, leaves_) -> Any:
     return out
 
 
-def map(fn: Callable, tree, *rest) -> Any:  # noqa: A001 - jax.tree.map
-    """``fn`` over the leaves of ``tree`` and of ``rest`` (same
-    structure), rebuilt in ``tree``'s structure."""
-    flat, treedef = flatten(tree)
-    others = []
-    for other in rest:
-        o_flat, o_def = flatten(other)
-        if o_def != treedef:
-            raise ValueError("tree structures differ")
-        others.append(o_flat)
+def map(fn: Callable, tree, *rest,  # noqa: A001 - jax.tree.map
+        is_leaf: Optional[Callable] = None) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching subtrees of
+    ``rest`` (``tree``'s structure, or deeper below its leaves), rebuilt
+    in ``tree``'s structure."""
+    flat, treedef = flatten(tree, is_leaf)
+    others = [flatten_up_to(treedef, other) for other in rest]
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
 
 

@@ -60,7 +60,8 @@ def test_no_jax_or_reference_imports():
             "train/__init__.py", "train/step.py", "train/loop.py",
             "checkpoint/__init__.py", "checkpoint/manager.py",
             "launch/train.py", "models/moe.py", "models/ssm.py",
-            "models/rglru.py", "serve/engine.py", "launch/serve.py"} <= names
+            "models/rglru.py", "serve/engine.py", "launch/serve.py",
+            "dist/sharding.py", "launch/mesh.py", "launch/dryrun.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
@@ -94,6 +95,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.launch.train, repro_torch.launch.serve\n"
             "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "import repro_torch.models.rglru, repro_torch.serve.engine\n"
+            "import repro_torch.dist.sharding, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.dryrun\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     assert _run(code, 0) == "[]"
