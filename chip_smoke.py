@@ -36,13 +36,27 @@ Phases, each printed as it runs:
    (f32: max error / max|v| within 1e-5; bf16: elementwise within the
    rounding bound of P to bf16 before PV, as in the Pallas body, and of
    the bf16 output, 2^-8 (P|V|) + 2^-8 |o|, plus the f32 term).
+   3b: K1's f32 route split over m (``kernels/gram.py::gram_split``) at
+   ZoloMuon's six shapes (phase 20's five and phase 19's 4,096 x 1,024)
+   and the edge cases (2,047 x 1,409, 2,048 x 1, 63 and 65, 5 x 64, which
+   must take S = 1, and 3,072 x 4,096), each row-major and as a
+   column-major view, at c = 0 and c > 0: within K1_TOL, exactly
+   symmetric, bitwise the same over two launches, on its split; the
+   rule's S = 1 at the large shapes; K2 at the six shapes with xw a
+   number and a tensor, within K2_TOL_F32, one launch a call.
 4. kernel times (CUDA events, warm), beside the plain version, one
    PyTorch library call computing the same function, and the bound:
    every route of K1, K3 and K4 on its own (K1 bf16 at 11,999^2, staged,
    with the staging copy also timed alone, and at 12,000^2 as it lies);
    the library calls with f32 output from bf16 operands
    (``torch.mm(..., out_dtype=torch.float32)``, for K3 bf16 and K1 bf16)
-   are checked against the plain version first.
+   are checked against the plain version first.  K1 f32 and K2 also
+   report their device time per call from ``torch.profiler`` over the
+   same calls (host time against device time), K1 its split S.  4b: K1
+   f32 and K2 (r = 2) the same way at ZoloMuon's six shapes, 12,288 x
+   4,096 (phase 19) and 21b's rank blocks 6,144 x 4,096 and 3,072 x
+   4,096, before any other phase has run (the profiler recorded no device
+   time after phases 17-19 in one run).
 5. main path: the paper's linverse matrix (n = 11,999, kappa = 9.06e3)
    synthesized on the card and solved through
    ``plan(SvdConfig(method="zolo_cuda", ...)).svd(a)``, with the kernel
@@ -438,6 +452,25 @@ PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 K1_TOL = 5e-5       # max|err| / max|G|: f32 sums over m = 12k products
+# phase 3b: K1's f32 split route at ZoloMuon's shapes (phase 20's five and
+# phase 19's K/V momenta, 4,096 x 1,024, each with S > 1 on 132 SMs) and
+# its edge cases (ragged tiles, n below and around the narrow tile, a
+# short m that must take S = 1, a wide A); the shapes that must keep
+# S = 1 (128-wide tiles, no split); K2's r there
+K1_SPLIT_SHAPES = ((2048, 1408), (2048, 2048), (2048, 64), (3352, 768),
+                   (1536, 768), (4096, 1024))
+K1_EDGE_SHAPES = ((2047, 1409), (2048, 1), (2048, 63), (2048, 65), (5, 64),
+                  (3072, 4096))
+K1_UNSPLIT_SHAPES = ((11_999, 11_999), (12_288, 4096), (6144, 4096),
+                     (3072, 4096), (5, 64))
+MUON_R = 2
+# phase 4b also times K1/K2 at Muon's shapes with S = 1: phase 19's tall one
+# and 21b's rank blocks
+K1_MUON_UNSPLIT_SHAPES = ((12_288, 4096), (6144, 4096), (3072, 4096))
+# step seconds before K1's split route and K2's single launch, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5: phase 19 chip call 4
+# of PR 21, 20c/20d chip call 16 of PR 20), printed beside this run's
+PRIOR_STEP_S = {"19": 2.253, "20c": 0.904, "20d": 4.354}
 K2_TOL_F32 = 1e-6   # max|err| / max|Y| in f32 (bf16: combine_bf16_ok)
 ACCURACY_TOL = 1e-4  # f32 eps * sqrt(n) ~ 1.3e-5, times a small factor
 # a bf16 compute solve, held to the reference's own bf16 criteria:
@@ -605,6 +638,15 @@ def zero_counts(counters):
         mod.launches = 0
         for route in getattr(mod, "launches_by_route", {}):
             mod.launches_by_route[route] = 0
+        getattr(mod, "launches_by_split", {}).clear()
+
+
+def split_counts():
+    """K1's ``"simt"`` launches by split S since the counts were last
+    zeroed: {S: launches}."""
+    from repro_torch.kernels import gram as kgram
+
+    return dict(sorted(kgram.launches_by_split.items()))
 
 
 def path_run(torch, counters, fn):
@@ -940,6 +982,112 @@ def phase_parity(torch, device, n, ragged, attn, mm_ragged, s_ragged,
     return rows, (a32, t32, coef, mhat), paths
 
 
+def phase_split_parity(torch, device, split_shapes, edge_shapes,
+                       unsplit_shapes):
+    """Phase 3b: K1's f32 route split over m, and K2, at ZoloMuon's shapes.
+
+    K1 at every shape, row-major and as a column-major view (both read as
+    they lie), at c = 0, below and above the clamp floor: within K1_TOL
+    (max error / max|G|), exactly symmetric, the applied shift max(c,
+    floor), bitwise the same over two launches, and every launch on the
+    "simt" route with the S the rule gives.  The rule's S = 1 at ``unsplit_shapes`` and
+    S > 1 at ``split_shapes`` on this card's SM count.  K2 (r = MUON_R)
+    at ``split_shapes`` with xw a python number and a tensor, within
+    K2_TOL_F32, one launch a call."""
+    from repro_torch.kernels import gram as kgram
+    from repro_torch.kernels import grouped_combine as kcomb
+    from repro_torch.kernels import ops, ref
+
+    say("== phase 3b: K1 f32 split over m, and K2, at ZoloMuon's shapes")
+    on_card = device.type == "cuda"
+    sms = kgram.device_sms(device) if on_card else 132
+    gen = torch.Generator(device=device).manual_seed(2022)
+    rows = []
+    rule = {f"{m_}x{n_}": kgram.gram_split(m_, n_, sms)
+            for m_, n_ in tuple(unsplit_shapes) + tuple(split_shapes)}
+    say(f"gram_split on {sms} SMs: {rule}")
+    if on_card:
+        check(all(rule[f"{m_}x{n_}"] == 1 for m_, n_ in unsplit_shapes)
+              and all(rule[f"{m_}x{n_}"] > 1 for m_, n_ in split_shapes),
+              f"3b: the split rule gave {rule}")
+        resident = {t: kgram.gram_resident(t) for t in (128, 64)}
+        say(f"split kernel: resident blocks an SM {resident}, the rule "
+            f"assumes {kgram.GRAM_RESIDENT}")
+        check(resident == kgram.GRAM_RESIDENT,
+              f"3b: resident blocks {resident}")
+    for m_, n_ in tuple(split_shapes) + tuple(edge_shapes):
+        a = torch.randn((m_, n_), generator=gen, device=device)
+        sl = kgram.gram_split(m_, n_, sms)
+        g0 = ref.gram_ref(a)
+        floor = 8.0 * torch.finfo(torch.float32).eps * \
+            float(torch.diagonal(g0).amax())
+        del g0
+        for lay, x in (("row-major", a),
+                       ("column-major view", a.mT.contiguous().mT)):
+            tag = f"f32 {m_}x{n_} {lay} S={sl}"
+            for cname, c in (("0", 0.0), ("below_floor", 0.25 * floor),
+                             ("above_floor", 4.0 * floor)):
+                zero_counts(kernel_modules())
+                got = ops.gram(x, c)
+                again = ops.gram(x, c)
+                launched = (kgram.launches, dict(kgram.launches_by_route),
+                            split_counts())
+                want = ref.gram_ref(x, c)
+                err = float((got - want).abs().amax())
+                rel = err / max(float(want.abs().amax()), 1e-30)
+                same = bool(torch.equal(got, again))
+                sym = bool(torch.equal(got, got.mT))
+                say(f"K1 {tag} c={cname}: max_abs_err {err:.3e} rel "
+                    f"{rel:.3e}, symmetric {sym}, two launches bitwise "
+                    f"equal {same}; launches {launched}")
+                rows.append({"kernel": "gram", "route": "simt",
+                             "case": f"{tag} c={cname}", "max_abs_err": err,
+                             "rel_err": rel, "bitwise_repeat": same})
+                check(rel <= K1_TOL and sym and same,
+                      f"3b: K1 {tag} c={cname}")
+                if on_card:
+                    check(launched == (2, {"simt": 2, "wgmma": 0},
+                                       {sl: 2}),
+                          f"3b: K1 {tag} launched {launched}")
+                if c:
+                    applied = float((torch.diagonal(got).double()
+                                     - torch.diagonal(ops.gram(x)).double())
+                                    .mean())
+                    expect = max(c, floor)
+                    check(abs(applied - expect) <= 0.05 * expect,
+                          f"3b: K1 {tag} c={cname}: shift {applied:.4e} "
+                          f"applied, {expect:.4e} expected")
+                del got, again, want
+        del a
+    for m_, n_ in split_shapes:
+        x = torch.randn((m_, n_), generator=gen, device=device)
+        t = torch.randn((MUON_R, m_, n_), generator=gen, device=device)
+        coef = torch.randn((MUON_R,), generator=gen, device=device)
+        mhat = torch.tensor(0.987, device=device)
+        for xw in (1.0, torch.tensor(1.0, device=device), -0.5,
+                   torch.tensor(-0.5, device=device)):
+            kind = "tensor" if isinstance(xw, torch.Tensor) else "number"
+            case = f"f32 r={MUON_R} {m_}x{n_} xw={float(xw):g} ({kind})"
+            before = kcomb.launches
+            got = ops.grouped_combine(x, t, coef, mhat, xw)
+            n_launch = kcomb.launches - before
+            want = ref.grouped_combine_ref(x, t, coef, mhat, xw)
+            err = float((got - want).abs().amax())
+            rel = err / float(want.abs().amax())
+            say(f"K2 {case}: max_abs_err {err:.3e} rel {rel:.3e}, "
+                f"launches {n_launch}")
+            rows.append({"kernel": "grouped_combine", "case": case,
+                         "max_abs_err": err, "rel_err": rel})
+            check(rel <= K2_TOL_F32, f"3b: K2 {case}")
+            if on_card:
+                check(n_launch == 1, f"3b: K2 {case}: {n_launch} launches")
+            del got, want
+        del x, t
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"rows": rows, "rule": rule}
+
+
 def fmt_ms(ms):
     return "n/a" if ms is None else f"{ms:.3f} ms"
 
@@ -961,6 +1109,48 @@ def library_f32_out(torch, clock, fn, ok, reps):
             "out_dtype=torch.float32)"}
 
 
+def device_ms(torch, fn, reps):
+    """fn's device time from ``torch.profiler`` (CUPTI) over ``reps``
+    calls, recorded in the active step of a schedule after a warm-up step
+    of one call: {"ms": the device time of every kernel, memset and copy
+    the calls ran, over ``reps``, or None where the trace is not whole;
+    "per_call": how many they ran a call; "by_name": {name: ms a call}};
+    None off the card.  A trace can miss events (one of five 42 ms kernels
+    once, every event after phases 17-19 once): where the count of
+    recorded operations is not a whole multiple of ``reps``, or is 0, the
+    device time is not measured ("ms" None)."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    active = []  # the active step's averages, handed over as it ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: active.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    total, count, by_name = 0.0, 0, {}
+    for e in (active[0] if active else ()):
+        if getattr(getattr(e, "device_type", None), "name", "") != "CUDA" \
+                or e.key.startswith("ProfilerStep"):  # the step's span
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += us
+        count += e.count
+        by_name[e.key[:80]] = us / reps / 1e3
+    whole = count > 0 and count % reps == 0
+    return {"ms": total / reps / 1e3 if whole else None,
+            "per_call": count / reps, "by_name": by_name}
+
+
 def k1_bound(m, n, itemsize, peak):
     """K1's bound: G is symmetric, so the function needs m n (n + 1) flops
     (its upper triangle); bytes: A read once, G (f32) written once."""
@@ -970,24 +1160,66 @@ def k1_bound(m, n, itemsize, peak):
             "operations" if flops / peak > nbytes / PEAK_BYTES else "bytes")
 
 
-def k1_f32_times(clock, a32, reps):
+def k1_f32_times(torch, clock, a32, reps, profile=False):
     """K1 on an f32 A (c = 0) beside its plain version, ``a.T @ a`` and
-    its bound."""
+    its bound, with its split S and tile; with ``profile``, also the
+    device time per call of the kernel and of the library call from the
+    profiler over the same calls."""
+    from repro_torch.kernels import gram as kgram
     from repro_torch.kernels import ops, ref
 
     m, n = a32.shape
+    sms = kgram.device_sms(a32.device) if a32.is_cuda else 132
+    slices = kgram.gram_split(m, n, sms)
     rec = {"ms": clock.ms(lambda: ops.gram(a32), reps),
            "plain_ms": clock.ms(lambda: ref.gram_ref(a32), reps),
            "library_ms": clock.ms(lambda: a32.mT @ a32, reps),
-           "library": "a.T @ a", "shape": f"A f32 ({m}, {n}), c = 0"}
+           "library": "a.T @ a", "shape": f"A f32 ({m}, {n}), c = 0",
+           "slices": slices, "tile": kgram.gram_tile(slices)}
+    if profile:
+        rec["device"] = device_ms(torch, lambda: ops.gram(a32), reps)
+        rec["library_device"] = device_ms(torch, lambda: a32.mT @ a32,
+                                          reps)
+        # the same A stored column-major (the CholeskyQR2 second pass's
+        # operands) as the wrapper takes it (in place; copied row-major
+        # where S = 1 and no column is float4-aligned), against a
+        # row-major copy made here and K1
+        acol = a32.mT.contiguous().mT
+        rec["col_ms"] = clock.ms(lambda: ops.gram(acol), reps)
+        rec["col_copy_ms"] = clock.ms(lambda: ops.gram(acol.contiguous()),
+                                      reps)
+        del acol
     rec["bound_ms"], rec["bound_by"] = k1_bound(m, n, 4, PEAK_F32)
     return rec
 
 
-def k2_f32_times(torch, clock, x, t, a, mhat, reps):
+def fmt_dev_ms(dev):
+    """A profiler device time, or why there is none."""
+    if dev["ms"] is None:
+        return (f"not measured (the trace holds {dev['per_call']:g} "
+                f"operations a call)")
+    return f"{dev['ms']:.4f} ms ({dev['per_call']:g} a call)"
+
+
+def fmt_device(rec):
+    """`` device K / L ms`` of a record's profiler times (and K1's
+    column-major read), or nothing."""
+    if rec.get("device") is None:
+        return ""
+    return (f"; device {fmt_dev_ms(rec['device'])}, library "
+            f"{fmt_dev_ms(rec['library_device'])}"
+            + (f"; column-major A as the wrapper takes it "
+               f"{rec['col_ms']:.4f} ms, copied row-major first "
+               f"{rec['col_copy_ms']:.4f} ms"
+               if "col_ms" in rec else ""))
+
+
+def k2_f32_times(torch, clock, x, t, a, mhat, reps, profile=False):
     """K2 (xw = 1) on an f32 X and (r, m, n) terms beside its plain
     version, one ``addmm`` computing the whole combine (checked against
-    the plain version first) and its bound; printed."""
+    the plain version first) and its bound; with ``profile``, also the
+    device time per call of both from the profiler, and one device
+    operation a call checked; printed."""
     from repro_torch.kernels import ops, ref
 
     m, n = x.shape
@@ -1014,6 +1246,10 @@ def k2_f32_times(torch, clock, x, t, a, mhat, reps):
            "library_max_abs_err": lib_err,
            "einsum_terms_only_ms": clock.ms(
                lambda: torch.einsum("j,jmn->mn", a, t), reps)}
+    if profile:
+        rec["device"] = device_ms(
+            torch, lambda: ops.polar_update(x, t, a, mhat), reps)
+        rec["library_device"] = device_ms(torch, library, reps)
     nbytes = 4.0 * (r + 2) * m * n
     flops = (2.0 * r + 2.0) * m * n
     rec["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
@@ -1025,7 +1261,16 @@ def k2_f32_times(torch, clock, x, t, a, mhat, reps):
         f"{rec['library_ms']:.3f} ms (max_abs_err against the plain "
         f"version {lib_err:.3e}; einsum of the terms alone, without X "
         f"and mhat: {rec['einsum_terms_only_ms']:.3f} ms), bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})" + fmt_device(rec))
+    if rec.get("device") is not None:
+        # one launch a call: no device operation but the combine kernel,
+        # and no more of it than calls (a trace that missed events reads
+        # fewer, and its device time is not measured)
+        dev = rec["device"]
+        check(dev["per_call"] <= 1
+              and all("combine" in k for k in dev["by_name"]),
+              f"K2 r={r} ({m}, {n}): {dev['per_call']} device operations a "
+              f"call, not one launch: {dev['by_name']}")
     return rec
 
 
@@ -1038,7 +1283,7 @@ def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
     from repro_torch.kernels import ops, ref
 
     n = a32.shape[1]
-    k1 = {"simt": k1_f32_times(clock, a32, reps)}
+    k1 = {"simt": k1_f32_times(torch, clock, a32, reps, profile=True)}
     gen = torch.Generator(device=device).manual_seed(97)
     for size, tag in ((n, "staged"), (mm_aligned, "zero-copy")):
         bf = a32.to(torch.bfloat16) if size == n else torch.randn(
@@ -1072,7 +1317,9 @@ def phase_times_gram(torch, device, clock, a32, mm_aligned, reps):
             f"{rec['plain_ms']:.3f} ms, library {fmt_ms(rec['library_ms'])}"
             f", bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})"
             + (f"; staging copy alone {rec['staging_ms']:.3f} ms"
-               if "staging_ms" in rec else ""))
+               if "staging_ms" in rec else "")
+            + (f"; S = {rec['slices']}" if "slices" in rec else "")
+            + fmt_device(rec))
     return k1
 
 
@@ -1092,7 +1339,8 @@ def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
     recs["gram"] = phase_times_gram(torch, device, clock, a32, mm_aligned,
                                     reps)
 
-    out = {r: k2_f32_times(torch, clock, a32, t32[:r], coef[:r], mhat, reps)
+    out = {r: k2_f32_times(torch, clock, a32, t32[:r], coef[:r], mhat, reps,
+                           profile=True)
            for r in (1, R)}
     recs["grouped_combine"] = dict(out[R], r1=out[1])
 
@@ -1202,6 +1450,22 @@ def phase_times(torch, device, clock, tensors, n, attn, mm_aligned):
         del q, k_, v, qt, kt, vt
     recs["flash_attention"] = k4
     return recs
+
+
+def phase_times_muon(torch, device, clock, shapes):
+    """Phase 4b: K1 f32 and K2 (r = MUON_R) at ZoloMuon's shapes, in one
+    place: each against its plain version, timed beside it, one library
+    call and its bound, K1 with its split S, and both with their device
+    time per call from ``torch.profiler`` over the same calls (host time
+    against device time; K2 one device operation a call)."""
+    say("== phase 4b: K1 f32 and K2 at ZoloMuon's shapes, events and "
+        "device time")
+    out = {f"{m_}x{n_}": muon_kernel_times(torch, device, clock, m_, n_,
+                                           MUON_R, "4b", profile=True)
+           for m_, n_ in shapes}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_solve(torch, clock, p, a, counters):
@@ -2419,7 +2683,7 @@ def profile_group(kernel, op=""):
     """The group of one device kernel ``kernel`` launched under the
     top-level op ``op`` ("" when no op encloses it)."""
     k = kernel.lower()
-    if "gram_tiles" in k or "gram_shift" in k or "gram_bf16" in k:
+    if "gram_slices" in k or "gram_shift" in k or "gram_bf16" in k:
         return "K1"
     if "combine_scalar" in k or "combine_vec4" in k:
         return "K2"
@@ -3706,15 +3970,17 @@ def muon_yardstick(torch, device, clock, counters, muon_cfg, leaf, mu,
     return rec
 
 
-def muon_kernel_times(torch, device, clock, m_, n_, r, label):
+def muon_kernel_times(torch, device, clock, m_, n_, r, label,
+                      profile=False):
     """K1 and K2 at one of Muon's tall shapes (m_, n_), each against its
     plain version (within K1_TOL / K2_TOL_F32 of its max) and timed beside
-    it, one library call and its bound: {"gram/simt": ...,
-    "grouped_combine": ...}."""
+    it, one library call and its bound (with ``profile``, also their
+    device times): {"gram/simt": ..., "grouped_combine": ...}."""
     from repro_torch.kernels import ops, ref
 
     on_card = device.type == "cuda"
-    reps = 5 if on_card else 2
+    # more calls where one is tens of microseconds
+    reps = (5 if m_ * n_ * n_ >= 1e10 else 20) if on_card else 2
     gen = torch.Generator(device=device).manual_seed(19)
     x = torch.randn((m_, n_), generator=gen, device=device)
     t = torch.randn((r, m_, n_), generator=gen, device=device)
@@ -3728,12 +3994,13 @@ def muon_kernel_times(torch, device, clock, m_, n_, r, label):
     check(g_err <= K1_TOL and c_err <= K2_TOL_F32,
           f"{label} ({m_}, {n_}): K1 {g_err:.3e} K2 {c_err:.3e} against the "
           "plain versions")
-    k1 = dict(k1_f32_times(clock, x, reps), max_rel_err=g_err)
+    k1 = dict(k1_f32_times(torch, clock, x, reps, profile), max_rel_err=g_err)
     say(f"K1 simt {k1['shape']}: kernel {k1['ms']:.3f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, library {fmt_ms(k1['library_ms'])}, "
-        f"bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}); max error / "
-        f"max|G| {g_err:.3e}")
-    k2 = dict(k2_f32_times(torch, clock, x, t, coef, mhat, reps),
+        f"bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}); S = "
+        f"{k1['slices']} (tile {k1['tile']}); max error / max|G| "
+        f"{g_err:.3e}" + fmt_device(k1))
+    k2 = dict(k2_f32_times(torch, clock, x, t, coef, mhat, reps, profile),
               max_rel_err=c_err)
     return {"gram/simt": k1, "grouped_combine": k2}
 
@@ -3806,19 +4073,21 @@ def phase_train(torch, device, clock, sizes):
             clock.sync()
             secs = time.perf_counter() - t0
             launches = read_counts(counters)
+            by_split = split_counts()
         m = {k: float(v) for k, v in metrics.items()}
         steps.append({"step": i, "seconds": secs, "update_s": probe.update_s,
                       "orthogonalize_s": probe.orth_s,
                       "orthogonalize_calls": probe.orth_calls,
                       "fwd_bwd_s": secs - probe.update_s,
-                      "launches": launches, **m})
+                      "launches": launches, "k1_by_split": by_split, **m})
         say(f"{'warm' if i == 0 else 'timed'} step {i}: {secs:.3f} s "
             f"(forward+backward {secs - probe.update_s:.3f}, update "
             f"{probe.update_s:.3f} of which orthogonalize {probe.orth_s:.3f}"
             f" in {probe.orth_calls} calls), loss {m['loss']:.5f}, grad "
             f"norm {m['grad_norm']:.5f}, lr scale {m['lr_scale']:g}, K1 "
             f"{launches['gram']} (simt {launches['gram/simt']}, wgmma "
-            f"{launches['gram/wgmma']}) K2 {launches['grouped_combine']}")
+            f"{launches['gram/wgmma']}; by split S {by_split}) K2 "
+            f"{launches['grouped_combine']}")
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
               f"19: step {i} loss {m['loss']} grad norm {m['grad_norm']}")
     rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
@@ -3909,8 +4178,9 @@ def phase_train(torch, device, clock, sizes):
     rec["launcher"] = launch
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t_phase
-    say(f"phase 19 ({rec['seconds']:.1f} s): {rec['step_s']:.3f} s a step, "
-        f"{rec['tokens_per_s']:.1f} "
+    say(f"phase 19 ({rec['seconds']:.1f} s): {rec['step_s']:.3f} s a step "
+        f"(before K1's split and K2's single launch: "
+        f"{PRIOR_STEP_S['19']} s), {rec['tokens_per_s']:.1f} "
         f"tokens/s, update {rec['update_s']:.3f} s (orthogonalize "
         f"{rec['orthogonalize_s']:.3f} s), forward+backward "
         f"{rec['fwd_bwd_s']:.3f} s, peak "
@@ -4203,11 +4473,12 @@ def train_lm_case(torch, device, clock, counters, cfg, case, label):
             clock.sync()
             secs = time.perf_counter() - t0
             launches = read_counts(counters)
+            by_split = split_counts()
         m = {k: float(v) for k, v in metrics.items()}
         steps.append({"step": i, "seconds": secs, "update_s": probe.update_s,
                       "orthogonalize_s": probe.orth_s,
                       "fwd_bwd_s": secs - probe.update_s,
-                      "launches": launches, **m})
+                      "launches": launches, "k1_by_split": by_split, **m})
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
               f"{label}: step {i} loss {m['loss']} grad norm "
               f"{m['grad_norm']}")
@@ -4215,7 +4486,8 @@ def train_lm_case(torch, device, clock, counters, cfg, case, label):
             f" (forward+backward {secs - probe.update_s:.3f}, update "
             f"{probe.update_s:.3f} of which orthogonalize {probe.orth_s:.3f})"
             f", loss {m['loss']:.5f}, aux {m['aux_loss']:.5f}, K1 "
-            f"{launches['gram']} K2 {launches['grouped_combine']}")
+            f"{launches['gram']} (by split S {by_split}) K2 "
+            f"{launches['grouped_combine']}")
     rec["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
         else None
     rec["steps"] = steps
@@ -4253,8 +4525,11 @@ def train_lm_case(torch, device, clock, counters, cfg, case, label):
                              reverse=True)}
     if on_card:
         torch.cuda.empty_cache()
+    prior = PRIOR_STEP_S.get(label)
     say(f"{label} {cfg.name} ({cfg.num_layers} layers, {rec['params']:,} "
-        f"parameters), batch {b} x {s}: {rec['step_s']:.3f} s a step, "
+        f"parameters), batch {b} x {s}: {rec['step_s']:.3f} s a step"
+        + ("" if prior is None else f" (before K1's split and K2's single "
+           f"launch: {prior} s)") + ", "
         f"{rec['tokens_per_s']:.1f} tokens/s, orthogonalize "
         f"{rec['orthogonalize_s']:.3f} s ({100 * rec['orthogonalize_share']:.1f}%"
         f" of the step), {rec['solves_per_step']} polar solves a step over "
@@ -4838,7 +5113,11 @@ def main(argv=None) -> int:
             TRAIN_BATCH, TRAIN_SEQ
         serve_lm = {k: dict(v, cfg=CFG.get_config(v["arch"]))
                     for k, v in SERVE_LM.items()}
+        split_sets = (K1_SPLIT_SHAPES, K1_EDGE_SHAPES, K1_UNSPLIT_SHAPES)
+        muon_shapes = K1_SPLIT_SHAPES + K1_MUON_UNSPLIT_SHAPES
     else:
+        split_sets = (((256, 40), (130, 64)), ((129, 33), (5, 16)), ())
+        muon_shapes = ((256, 40), (130, 64))
         n, ragged, attn = 160, (50, 17), {"b": 1, "s": 96, "h": 4, "d": 16}
         mm_ragged, s_ragged = (37, 29, 41), 80
         mm_aligned, mm_transposed = 168, 64
@@ -4867,8 +5146,10 @@ def main(argv=None) -> int:
     record["parity"], tensors, paths = phase_parity(
         torch, device, n, ragged, attn, mm_ragged, s_ragged, mm_aligned,
         mm_transposed)
+    record["split_parity"] = phase_split_parity(torch, device, *split_sets)
     times = phase_times(torch, device, clock, tensors, n, attn, mm_aligned)
     del tensors
+    times["muon"] = phase_times_muon(torch, device, clock, muon_shapes)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     record["times"] = times
@@ -4920,8 +5201,14 @@ def main(argv=None) -> int:
     record["seconds"] = time.perf_counter() - t_start
 
     def muon_row(t):
-        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "shape", "max_rel_err")}
+        row = {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape", "max_rel_err")}
+        row.update({k: t[k] for k in ("slices", "tile", "col_ms",
+                                      "col_copy_ms") if k in t})
+        for k in ("device", "library_device"):
+            if t.get(k) is not None:
+                row[f"{k}_ms"] = t[k]["ms"]
+        return row
 
     kernels = []
     sources = {"gram": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -5020,6 +5307,11 @@ def main(argv=None) -> int:
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"], "case": t["shape"]}
+        if "slices" in t:
+            rec["slices"] = t["slices"]
+        for k in ("device", "library_device"):
+            if t.get(k) is not None:
+                rec[f"{k}_ms"] = t[k]["ms"]
         if key == "gram/wgmma":
             rec["staging_ms"] = t["staging_ms"]
             aligned = times["gram"][f"wgmma_{mm_aligned}"]
@@ -5036,6 +5328,10 @@ def main(argv=None) -> int:
             rec["muon_blocks_21b"] = {
                 shape: muon_row(kt[key])
                 for shape, kt in rows_rec["kernel_times"].items()}
+            # phase 4b: every Muon shape with its device time
+            rec["muon_shapes_4b"] = {
+                shape: muon_row(kt[key])
+                for shape, kt in times["muon"].items()}
         kernels.append(rec)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -38,13 +38,16 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
     term at a time, as the Pallas bundle does, so the kernel launch count
     follows the reference's structure (1 + 2r launches in a CholeskyQR2
     iteration at r > 1, 1 in a Cholesky one, none in a structured
-    Householder one, whose QRs are torch ops; K2 once per iteration).  K1's bf16 route reads an
-    operand of either major as it lies (the engine's column-major solve
-    results, read through ``.mT``) and stages it at most once; its f32
-    route and K2 take row-major operands, so those are made contiguous
-    first (a no-op for a row-major one).  f64 is not taken: the kernels
-    accumulate in f32, and an f64 plan on ``zolo_cuda`` raises at plan
-    time.
+    Householder one, whose QRs are torch ops; K2 once per iteration).
+    Both K1 routes read an operand of either major as it lies (the
+    engine's column-major solve results, read through ``.mT``): the bf16
+    route stages it at most once, the f32 route reads it in place or
+    copies it row-major once inside the wrapper (unsplit, with no float4
+    columns: :func:`repro_torch.kernels.gram.gram_f32_operand`), so only
+    an f32 operand of other strides is made contiguous here.  K2 takes
+    row-major operands, made contiguous first (a no-op for a row-major
+    one).  f64 is not taken: the kernels accumulate in f32, and an f64
+    plan on ``zolo_cuda`` raises at plan time.
     """
 
     def gram(x, c=0.0):
@@ -54,7 +57,7 @@ def cuda_zolo_ops() -> _zolo.ZoloOps:
             raise ValueError(f"cuda_zolo_ops.gram takes (m, n) or an r-term "
                              f"stack (r <= {MAX_TERM_STACK}, m, n); got "
                              f"{tuple(x.shape)}")
-        if _kgram.gram_route(x) == "simt":
+        if _kgram.gram_route(x) == "simt" and _kgram.gram_layout(x) is None:
             x = x.contiguous()
         return _kops.gram(x, c)
 

@@ -33,15 +33,19 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of every exported entry point (restype is int: the
 # cudaGetLastError() code)
 SIGNATURES = {
     "gram": {
-        "zolo_gram_f32": (_P, _P, _I, _I, _LL, _P, _P),
+        "zolo_gram_f32_split": (_P, _I, _LL, _P, _I, _I, _I, _I, _I, _P,
+                                _P),
+        "zolo_gram_f32_resident": (_I, _I, _IP),
         "zolo_gram_bf16_wgmma": (_P, _I, _LL, _P, _I, _I, _P, _P),
     },
     "grouped_combine": {
-        "zolo_grouped_combine": (_I, _I, _P, _P, _P, _LL, _I, _P, _P, _P),
+        "zolo_grouped_combine": (_I, _I, _P, _P, _P, _LL, _I, _P, _P, _F,
+                                 _P, _F, _P),
     },
     "matmul": {
         "zolo_matmul_f32": (_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _F,

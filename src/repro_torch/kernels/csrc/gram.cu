@@ -3,20 +3,45 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/gram.py::_gram_kernel
 // (gram_kernel_call).  A is (m, n); G is (n, n) row-major f32 with f32
 // sums.  Two kernels, one per route (the wrapper, kernels/gram.py, picks
-// the route from A's dtype and shape before the launch), and one shared
-// shift epilogue:
+// the route from A's dtype before the launch), and one shared shift
+// epilogue:
 //
-// * gram_tiles (route "simt"): f32 A, row-major with row stride lda.
-//   Every product and sum is a true f32 FFMA (no TF32: the f32 kappa
-//   envelope assumes f32 products).  Bound on the H100: operations, G's
-//   upper triangle is m n (n + 1) flops: 26 ms at m = n = 11,999 at the
-//   67 TFLOP/s f32 rate outside the tensor cores.  Design: one block per
-//   128 x 128 tile of the upper triangle (an off-diagonal tile is also
-//   written mirrored); the TPU's sequential k grid axis is an in-block
-//   loop over 16-row chunks of A, double-buffered in shared memory with
-//   the next chunk prefetched into registers; 256 threads with 8 x 8 f32
-//   register tiles fed by conflict-free float4 shared-memory reads; every
-//   global load coalesced along n, ragged edges masked.
+// * gram_slices (route "simt"): f32 A, row-major or column-major.  Every
+//   product and sum is a true f32 FFMA (no TF32: the f32 kappa envelope
+//   assumes f32 products).  Bound on the H100: operations, G's upper
+//   triangle is m n (n + 1) flops: 26 ms at m = n = 11,999 at the 67
+//   TFLOP/s f32 rate outside the tensor cores.  Design: one block per
+//   (TILE x TILE tile of the upper triangle, slice of m); an off-diagonal
+//   tile is also written mirrored.  The wrapper's rule
+//   (kernels/gram.py::gram_split) picks S <= 8 slices of m, each a whole
+//   number of 16-row chunks, in order: S = 1 on 128-wide tiles where the
+//   upper triangle alone fills the card (the large solves, n = 11,999 and
+//   n = 4,096), S > 1 on 64-wide tiles where it would leave the 132 SMs
+//   under two resident waves (ZoloMuon's n <= ~2,900, and a narrow G,
+//   n = 64).  Grid (tile pairs, S); for S > 1 the S blocks of one tile form
+//   a thread-block cluster (1, S, 1).  The TPU's sequential k grid axis is
+//   an in-block loop over the slice's 16-row chunks, double-buffered in
+//   shared memory with the next chunk prefetched into registers; (TILE /
+//   8)^2 threads of 8 x 8 outputs (4 conflict-free float4 shared loads per
+//   64 FFMAs at either edge: 256 threads at 128^2, 64 at 64^2).  A is read
+//   as it lies: row-major along n (a float4 of 4 columns), column-major
+//   along k (A[k][i] at a + i lda + k, a float4 of 4 rows of one column,
+//   four threads a column's 16 chunk rows; the CholeskyQR2 second pass
+//   hands K1 Q1 and Q2 as transposed views); float4 loads where the
+//   leading dimension is a multiple of 4 and the base 16-byte aligned,
+//   else masked scalar loads of the same addresses (a row-major A at n =
+//   11,999; the wrapper copies a column-major one row-major at S = 1,
+//   where the scalar column loads measured slower than the copy), every
+//   warp's loads coalesced, ragged edges masked.  S > 1: each block parks
+//   its partial tile in shared memory (over the drained pipeline buffers)
+//   and after a cluster barrier sums 1/S of the tile across the cluster's
+//   distributed shared memory in rank (= slice) order, writing it and its
+//   mirror.  No float atomics: G is bitwise the same from launch to
+//   launch, and exactly symmetric (a diagonal tile's (r, c) and (c, r)
+//   partials are the same FFMAs in the same order).  Launch bounds (256,
+//   2) at 128^2 and (64, 8) at 64^2 fix the blocks an SM holds, which the
+//   rule's wave count assumes (zolo_gram_f32_resident reads it back on the
+//   card).
 //
 // * gram_bf16 (route "wgmma"): bf16 A, row-major or column-major, with a
 //   leading dimension that is a multiple of 8 elements and a 16-byte
@@ -54,6 +79,7 @@
 // unchanged.  It runs only when the caller passes a shift (c != NULL).
 
 #include <cfloat>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -61,114 +87,7 @@
 
 namespace {
 
-constexpr int kTile = 128;    // output tile edge
 constexpr int kChunk = 16;    // rows of A per pipeline stage
-constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kLoads = kChunk * kTile / kThreads;  // 8 per operand
-
-__device__ __forceinline__ void load_chunk(const float* __restrict__ a, int m,
-                                           int n, long long lda, int k0,
-                                           int c0, int tid, float* reg) {
-  const int col = c0 + (tid % kTile);
-  const int row0 = tid / kTile;
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) {
-    const int row = k0 + row0 + 2 * q;
-    reg[q] = (row < m && col < n) ? a[row * lda + col] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void store_chunk(float (*s)[kTile], int tid,
-                                            const float* reg) {
-  const int col = tid % kTile;
-  const int row0 = tid / kTile;
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) s[row0 + 2 * q][col] = reg[q];
-}
-
-__global__ void __launch_bounds__(kThreads)
-gram_tiles(const float* __restrict__ a, float* __restrict__ g, int m, int n,
-           long long lda, int tiles) {
-  // linear block index -> (bi, bj), bi <= bj, row-major over the upper
-  // triangle of the tiles x tiles tile grid
-  int rem = blockIdx.x;
-  int bi = 0;
-  while (rem >= tiles - bi) {
-    rem -= tiles - bi;
-    ++bi;
-  }
-  const int bj = bi + rem;
-  const int i0 = bi * kTile;
-  const int j0 = bj * kTile;
-
-  __shared__ __align__(16) float sa[2][kChunk][kTile];
-  __shared__ __align__(16) float sb[2][kChunk][kTile];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. +3 and 64 + tx*4 .. +3
-  const int ty = tid / 16;  // rows    ty*4 .. +3 and 64 + ty*4 .. +3
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  float ra[kLoads], rb[kLoads];
-  const int chunks = (m + kChunk - 1) / kChunk;
-  if (chunks > 0) {
-    load_chunk(a, m, n, lda, 0, i0, tid, ra);
-    load_chunk(a, m, n, lda, 0, j0, tid, rb);
-    store_chunk(sa[0], tid, ra);
-    store_chunk(sb[0], tid, rb);
-  }
-  __syncthreads();
-
-  for (int kc = 0; kc < chunks; ++kc) {
-    const int buf = kc & 1;
-    const bool more = kc + 1 < chunks;
-    if (more) {  // prefetch the next chunk while this one is multiplied
-      load_chunk(a, m, n, lda, (kc + 1) * kChunk, i0, tid, ra);
-      load_chunk(a, m, n, lda, (kc + 1) * kChunk, j0, tid, rb);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sa[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sa[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sb[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sb[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) {
-      // the other buffer was last read in iteration kc - 1, which every
-      // thread finished before the barrier that closed it
-      store_chunk(sa[buf ^ 1], tid, ra);
-      store_chunk(sb[buf ^ 1], tid, rb);
-    }
-    __syncthreads();
-  }
-
-  const bool mirror = bi != bj;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (col >= n) continue;
-      g[(long long)row * n + col] = acc[i][j];
-      if (mirror) g[(long long)col * n + row] = acc[i][j];
-    }
-  }
-}
 
 // One block: c_eff from the global max diagonal, then G[i][i] += c_eff.
 __global__ void __launch_bounds__(1024)
@@ -196,17 +115,283 @@ gram_shift(float* __restrict__ g, int n, const float* __restrict__ c) {
 }
 
 
-// Route "simt": the tiles, then the shift epilogue when c != NULL.
-int launch_f32(const float* a, float* g, int m, int n, long long lda,
-               const float* c, cudaStream_t s) {
-  if (n <= 0) return 0;
-  const int tiles = (n + kTile - 1) / kTile;
-  const int blocks = tiles * (tiles + 1) / 2;
-  gram_tiles<<<blocks, kThreads, 0, s>>>(a, g, m, n, lda, tiles);
-  cudaError_t err = cudaGetLastError();
+// ---- route "simt": f32 on the FFMA units, split over m -----------------------
+
+constexpr int kMaxCluster = 8;  // portable cluster size: slices of one tile
+
+// One block per (tile pair, slice): (TILE / 8)^2 threads, each summing an
+// 8 x 8 register tile (rows ty*4 .. +3 and TILE/2 + ty*4 .. +3, columns
+// likewise with tx), so every k step is 4 float4 shared loads for 64 FFMAs
+// at either tile edge.  A chunk is 16 rows of A's TILE columns per operand,
+// loaded as float4s: row-major along n (a float4 of 4 columns), column-major
+// along k (a float4 of 4 rows of one column).
+template <int TILE>
+struct SliceShape {
+  static constexpr int kThreads = (TILE / 8) * (TILE / 8);
+  static constexpr int kVecs = 4 * TILE / kThreads;  // float4s a chunk
+  static constexpr int kRowPass = kThreads / (TILE / 4);  // rows a pass
+  static constexpr int kColPass = kThreads / 4;  // columns a pass
+  static constexpr int kPipe = 2 * 2 * kChunk * TILE;     // floats: sa, sb
+  static constexpr int kPart = TILE * TILE;               // floats: a tile
+  static constexpr int kSmem = 4 * (kPipe > kPart ? kPipe : kPart);
+  static constexpr int kResident = TILE == 128 ? 2 : 8;   // blocks an SM
+};
+
+// rows k0 .. k0 + 15 (below k_end) of A's columns c0 .. c0 + TILE - 1 into
+// registers, 4 a float4 (vector loads where `vec` says A's leading
+// dimension and base allow them and the 4 lie inside A; masked scalars at
+// the ragged edges)
+template <int TILE, bool COL>
+__device__ __forceinline__ void slice_load(const float* __restrict__ a,
+                                           int n, long long lda, int k0,
+                                           int k_end, int c0, int tid,
+                                           bool vec, float4* reg) {
+  using S = SliceShape<TILE>;
+#pragma unroll
+  for (int q = 0; q < S::kVecs; ++q) {
+    float v[4];
+    if constexpr (!COL) {
+      const int row = k0 + tid / (TILE / 4) + S::kRowPass * q;
+      const int col = c0 + 4 * (tid % (TILE / 4));
+      const float* src = a + row * lda + col;
+      if (vec && row < k_end && col + 3 < n) {
+        reg[q] = *reinterpret_cast<const float4*>(src);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (row < k_end && col + e < n) ? src[e] : 0.0f;
+    } else {
+      const int col = c0 + tid / 4 + S::kColPass * q;
+      const int k = k0 + 4 * (tid % 4);
+      const float* src = a + col * lda + k;
+      if (vec && col < n && k + 3 < k_end) {
+        reg[q] = *reinterpret_cast<const float4*>(src);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (col < n && k + e < k_end) ? src[e] : 0.0f;
+    }
+    reg[q] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// the registers of slice_load into one [kChunk][TILE] buffer
+template <int TILE, bool COL>
+__device__ __forceinline__ void slice_store(float* s, int tid,
+                                            const float4* reg) {
+  using S = SliceShape<TILE>;
+#pragma unroll
+  for (int q = 0; q < S::kVecs; ++q) {
+    if constexpr (!COL) {
+      *reinterpret_cast<float4*>(
+          &s[(tid / (TILE / 4) + S::kRowPass * q) * TILE +
+             4 * (tid % (TILE / 4))]) = reg[q];
+    } else {
+      const int col = tid / 4 + S::kColPass * q;
+      const int k = 4 * (tid % 4);
+      s[k * TILE + col] = reg[q].x;
+      s[(k + 1) * TILE + col] = reg[q].y;
+      s[(k + 2) * TILE + col] = reg[q].z;
+      s[(k + 3) * TILE + col] = reg[q].w;
+    }
+  }
+}
+
+// grid (tile pairs of the upper triangle, S slices); for S > 1 launched as
+// clusters of (1, S, 1), so a cluster is one tile's S slices, rank = slice
+template <int TILE, bool COL>
+__global__ void __launch_bounds__(SliceShape<TILE>::kThreads,
+                                  SliceShape<TILE>::kResident)
+gram_slices(const float* __restrict__ a, float* __restrict__ g, int m, int n,
+            long long lda, int tiles, int rows_per, int vec) {
+  using S = SliceShape<TILE>;
+  constexpr int kHalf = TILE / 2;
+  extern __shared__ __align__(16) float sm[];
+  float* sa = sm;                        // [2][kChunk][TILE]
+  float* sb = sm + 2 * kChunk * TILE;    // [2][kChunk][TILE]
+
+  int rem = blockIdx.x;
+  int bi = 0;
+  while (rem >= tiles - bi) {
+    rem -= tiles - bi;
+    ++bi;
+  }
+  const int bj = bi + rem;
+  const int i0 = bi * TILE;
+  const int j0 = bj * TILE;
+  const int k_lo = blockIdx.y * rows_per;
+  const int k_hi = min(m, k_lo + rows_per);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (TILE / 8);  // columns tx*4 .. +3, kHalf + tx*4 ..
+  const int ty = tid / (TILE / 8);  // rows    ty*4 .. +3, kHalf + ty*4 ..
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  float4 ra[S::kVecs], rb[S::kVecs];
+  const int chunks = k_hi > k_lo ? (k_hi - k_lo + kChunk - 1) / kChunk : 0;
+  if (chunks > 0) {
+    slice_load<TILE, COL>(a, n, lda, k_lo, k_hi, i0, tid, vec, ra);
+    slice_load<TILE, COL>(a, n, lda, k_lo, k_hi, j0, tid, vec, rb);
+    slice_store<TILE, COL>(sa, tid, ra);
+    slice_store<TILE, COL>(sb, tid, rb);
+  }
+  __syncthreads();
+
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int buf = kc & 1;
+    const bool more = kc + 1 < chunks;
+    if (more) {  // prefetch the next chunk while this one is multiplied
+      const int k0 = k_lo + (kc + 1) * kChunk;
+      slice_load<TILE, COL>(a, n, lda, k0, k_hi, i0, tid, vec, ra);
+      slice_load<TILE, COL>(a, n, lda, k0, k_hi, j0, tid, vec, rb);
+    }
+    const float* ca = sa + buf * kChunk * TILE;
+    const float* cb = sb + buf * kChunk * TILE;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&ca[kk * TILE + ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&ca[kk * TILE + kHalf + ty * 4]);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(&cb[kk * TILE + tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&cb[kk * TILE + kHalf + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) {
+      // the other buffer was last read in iteration kc - 1, which every
+      // thread finished before the barrier that closed it
+      slice_store<TILE, COL>(sa + (buf ^ 1) * kChunk * TILE, tid, ra);
+      slice_store<TILE, COL>(sb + (buf ^ 1) * kChunk * TILE, tid, rb);
+    }
+    __syncthreads();
+  }
+
+  const bool mirror = bi != bj;
+  if (gridDim.y == 1) {  // one slice: the block's sums are G's values
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = i0 + (i < 4 ? ty * 4 + i : kHalf + ty * 4 + (i - 4));
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j0 + (j < 4 ? tx * 4 + j : kHalf + tx * 4 + (j - 4));
+        if (col >= n) continue;
+        g[(long long)row * n + col] = acc[i][j];
+        if (mirror) g[(long long)col * n + row] = acc[i][j];
+      }
+    }
+    return;
+  }
+
+  // S > 1: park the partial tile over the drained pipeline buffers (the
+  // loop's last barrier closed every read of them)
+  float* part = sm;  // [TILE][TILE]
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = i < 4 ? ty * 4 + i : kHalf + ty * 4 + (i - 4);
+    *reinterpret_cast<float4*>(&part[r * TILE + tx * 4]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(&part[r * TILE + kHalf + tx * 4]) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every slice's partial tile is in place
+  const int slices = gridDim.y;
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int kUnits = TILE * TILE / 4;  // float4s of a tile
+  const int lo = rank * kUnits / slices;
+  const int hi = (rank + 1) * kUnits / slices;
+  for (int u = lo + tid; u < hi; u += S::kThreads) {
+    // this share of the tile, summed over the slices in rank order
+    float4 v = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0))[u];
+    for (int s = 1; s < slices; ++s) {
+      const float4 w = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, s))[u];
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    const int row = i0 + u / (TILE / 4);
+    if (row >= n) continue;
+    const int col0 = j0 + (u % (TILE / 4)) * 4;
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + e;
+      if (col >= n) continue;
+      g[(long long)row * n + col] = vv[e];
+      if (mirror) g[(long long)col * n + row] = vv[e];
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int TILE, bool COL>
+cudaError_t set_slices_smem() {
+  constexpr int bytes = SliceShape<TILE>::kSmem;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(gram_slices<TILE, COL>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// Route "simt": the tiles in S slices, then the shift epilogue when
+// c != NULL (after the full sum: the clamp reads the summed diagonal)
+template <int TILE, bool COL>
+int launch_slices(const float* a, float* g, int m, int n, long long lda,
+                  int slices, int rows_per, const float* c, cudaStream_t s) {
+  using S = SliceShape<TILE>;
+  cudaError_t err = set_slices_smem<TILE, COL>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (n + TILE - 1) / TILE;
+  const long long pairs = static_cast<long long>(tiles) * (tiles + 1) / 2;
+  if (pairs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec =
+      lda % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(pairs), slices, 1);
+  cfg.blockDim = dim3(S::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = slices > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, gram_slices<TILE, COL>, a, g, m, n, lda,
+                           tiles, rows_per, vec);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || c == nullptr) return static_cast<int>(err);
   gram_shift<<<1, 1024, 0, s>>>(g, n, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int TILE, bool COL>
+int resident_slices(int* blocks) {
+  cudaError_t err = set_slices_smem<TILE, COL>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, gram_slices<TILE, COL>, SliceShape<TILE>::kThreads,
+      SliceShape<TILE>::kSmem));
 }
 
 // ---- route "wgmma": bf16 on the tensor cores --------------------------------
@@ -455,17 +640,53 @@ int launch_bf16(const CUtensorMap& ta, float* g, int m, int n,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  Both launch on `stream`,
+// Plain C interface (loaded with ctypes).  Both routes launch on `stream`,
 // allocate nothing, do not synchronise, and return a cudaError_t code (0
 // on success).  g: (n, n) f32, written in full; c: device pointer to one
 // f32 shift, or NULL for no shift.
 
-// Route "simt": f32 a (m, n) with row stride lda >= n.
-extern "C" int zolo_gram_f32(const void* a, void* g, int m, int n,
-                             long long lda, const void* c, void* stream) {
-  return launch_f32(static_cast<const float*>(a), static_cast<float*>(g), m,
-                    n, lda, static_cast<const float*>(c),
-                    static_cast<cudaStream_t>(stream));
+// Route "simt": f32 a (m, n), m, n >= 0, row-major (a_col = 0: a[k, i] at
+// a + k lda + i, lda >= n) or column-major (a_col = 1: at a + i lda + k,
+// lda >= m); tiles of tile x tile (64 or 128); `slices` (1..8) blocks of
+// `rows_per` rows (a multiple of 16) each on every tile, slice s = rows
+// [s rows_per, min(m, (s + 1) rows_per)), covering [0, m), none empty
+// (m = 0: one slice, G = c_eff I).  n = 0 launches nothing.
+extern "C" int zolo_gram_f32_split(const void* a, int a_col, long long lda,
+                                   void* g, int m, int n, int tile,
+                                   int slices, int rows_per, const void* c,
+                                   void* stream) {
+  if (m < 0 || n < 0 || lda < (a_col ? m : n) || slices < 1 ||
+      slices > kMaxCluster || rows_per <= 0 || rows_per % kChunk ||
+      static_cast<long long>(slices) * rows_per < m ||
+      static_cast<long long>(slices - 1) * rows_per >= (m > 0 ? m : 1) ||
+      (tile != 64 && tile != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const float* ap = static_cast<const float*>(a);
+  float* gp = static_cast<float*>(g);
+  const float* cp = static_cast<const float*>(c);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile == 128)
+    return a_col ? launch_slices<128, true>(ap, gp, m, n, lda, slices,
+                                            rows_per, cp, st)
+                 : launch_slices<128, false>(ap, gp, m, n, lda, slices,
+                                             rows_per, cp, st);
+  return a_col ? launch_slices<64, true>(ap, gp, m, n, lda, slices, rows_per,
+                                         cp, st)
+               : launch_slices<64, false>(ap, gp, m, n, lda, slices,
+                                          rows_per, cp, st);
+}
+
+// The blocks of the split kernel (tile 64 or 128, either major) one SM
+// holds at once, into *blocks: what kernels/gram.py's rule assumes.
+extern "C" int zolo_gram_f32_resident(int tile, int a_col, int* blocks) {
+  if (tile == 128)
+    return a_col ? resident_slices<128, true>(blocks)
+                 : resident_slices<128, false>(blocks);
+  if (tile == 64)
+    return a_col ? resident_slices<64, true>(blocks)
+                 : resident_slices<64, false>(blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Route "wgmma": bf16 a (m, n), m, n >= 1.  a_col = 0: row-major (a[k, i]

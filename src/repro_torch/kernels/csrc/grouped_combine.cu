@@ -13,9 +13,10 @@
 // (r + 2) m n 4 B = 3.46 GB, 1.03 ms at 3.35 TB/s, for (2r + 2) m n flops
 // — about 0.3 flop per byte.  Design for that bound: one grid-stride pass
 // over the flat m n elements (the arrays are contiguous, so rows need no
-// separate handling and coalescing is along n); a, mhat and xw are read
-// from device memory (no host sync per launch); r + 1 independent loads
-// per element keep enough bytes in flight.  Where every base pointer is
+// separate handling and coalescing is along n); the weights a are read
+// from device memory, and mhat and xw each from device memory or by value
+// (no host sync per launch, and no launch but this one per call); r + 1
+// independent loads per element keep enough bytes in flight.  Where every base pointer is
 // 16-byte (f32) or 8-byte (bf16) aligned and m n is a multiple of 4, each
 // thread moves 4 elements per load; otherwise (e.g. n = 11,999, whose
 // T[j] slices start at odd element offsets) it takes the scalar path.
@@ -73,16 +74,29 @@ template <> struct Vec4<__nv_bfloat16> {
   }
 };
 
+// mhat and xw: each through a device pointer when it is non-null, else the
+// value passed with the launch
+struct Scalars {
+  const float* mhat_p;
+  const float* xw_p;
+  float mhat_v;
+  float xw_v;
+  __device__ __forceinline__ float mhat() const {
+    return mhat_p ? *mhat_p : mhat_v;
+  }
+  __device__ __forceinline__ float xw() const { return xw_p ? *xw_p : xw_v; }
+};
+
 template <typename TX, typename TT>
 __global__ void __launch_bounds__(kThreads)
 combine_scalar(const TX* __restrict__ x, const TT* __restrict__ t,
                TX* __restrict__ y, long long total, int r,
-               const float* __restrict__ a, const float* __restrict__ s) {
+               const float* __restrict__ a, Scalars s) {
   float aj[kMaxR];
 #pragma unroll
   for (int j = 0; j < kMaxR; ++j) aj[j] = j < r ? a[j] : 0.0f;
-  const float mhat = s[0];
-  const float xw = s[1];
+  const float mhat = s.mhat();
+  const float xw = s.xw();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
@@ -98,12 +112,12 @@ template <typename TX, typename TT>
 __global__ void __launch_bounds__(kThreads)
 combine_vec4(const TX* __restrict__ x, const TT* __restrict__ t,
              TX* __restrict__ y, long long total, int r,
-             const float* __restrict__ a, const float* __restrict__ s) {
+             const float* __restrict__ a, Scalars s) {
   float aj[kMaxR];
 #pragma unroll
   for (int j = 0; j < kMaxR; ++j) aj[j] = j < r ? a[j] : 0.0f;
-  const float mhat = s[0];
-  const float xw = s[1];
+  const float mhat = s.mhat();
+  const float xw = s.xw();
   const long long groups = total / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -133,7 +147,7 @@ bool aligned(const void* p, size_t bytes) {
 
 template <typename TX, typename TT>
 int launch(const void* xv, const void* tv, void* yv, long long total, int r,
-           const void* a, const void* s, void* stream) {
+           const void* a, Scalars sc, void* stream) {
   if (total <= 0) return 0;
   const TX* x = static_cast<const TX*>(xv);
   const TT* t = static_cast<const TT*>(tv);
@@ -148,13 +162,12 @@ int launch(const void* xv, const void* tv, void* yv, long long total, int r,
   long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks > cap) blocks = cap;
   const float* af = static_cast<const float*>(a);
-  const float* sf = static_cast<const float*>(s);
   if (vec)
     combine_vec4<TX, TT><<<(int)blocks, kThreads, 0, st>>>(x, t, y, total, r,
-                                                           af, sf);
+                                                           af, sc);
   else
     combine_scalar<TX, TT><<<(int)blocks, kThreads, 0, st>>>(x, t, y, total,
-                                                             r, af, sf);
+                                                             r, af, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -163,14 +176,18 @@ int launch(const void* xv, const void* tv, void* yv, long long total, int r,
 // Plain C interface (loaded with ctypes).  x_bf16 / t_bf16 select each
 // operand's dtype (0: f32, 1: bf16; y has x's dtype).  total = m * n;
 // t holds r (1..8) contiguous slices of `total` elements; a: r device
-// f32 weights; s: device f32 {mhat, xw}.  Launches on `stream`, allocates
+// f32 weights; mhat and xw: a device f32 pointer each, or NULL to take the
+// value passed beside it.  Launches one kernel on `stream`, allocates
 // nothing, does not synchronise; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an r outside 1..8.
 extern "C" int zolo_grouped_combine(int x_bf16, int t_bf16, const void* x,
                                     const void* t, void* y, long long total,
-                                    int r, const void* a, const void* s,
-                                    void* stream) {
+                                    int r, const void* a, const void* mhat_p,
+                                    float mhat_v, const void* xw_p,
+                                    float xw_v, void* stream) {
   if (r < 1 || r > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
+  const Scalars s{static_cast<const float*>(mhat_p),
+                  static_cast<const float*>(xw_p), mhat_v, xw_v};
   if (!x_bf16 && !t_bf16)
     return launch<float, float>(x, t, y, total, r, a, s, stream);
   if (!x_bf16 && t_bf16)

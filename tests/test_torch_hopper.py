@@ -101,9 +101,10 @@ def test_gram_operand_reads_as_it_lies_or_stages_once(case, col, staged,
 
 
 def test_zolo_cuda_bundle_copies_only_f32_operands(monkeypatch):
-    """The solver's K1 bundle hands a bf16 operand of either major to K1 as
-    it lies (K1 stages at most once); an f32 one is made row-major, as
-    K1's f32 route needs."""
+    """The solver's K1 bundle hands an operand of either major to K1 as it
+    lies, bf16 or f32 (K1 stages a bf16 one at most once and reads an f32
+    one in place); only an f32 operand of other strides is made row-major
+    here, as K1's f32 route needs."""
     seen = []
 
     def fake_gram(x, c=0.0):
@@ -120,10 +121,11 @@ def test_zolo_cuda_bundle_copies_only_f32_operands(monkeypatch):
         assert g.shape == (2, 24, 24)
         for j, op in enumerate(seen):
             assert torch.equal(op, x[j])
-            if dt == BF:
-                assert op.data_ptr() == x[j].data_ptr()
-            else:
-                assert op.is_contiguous()
+            assert op.data_ptr() == x[j].data_ptr()
+    seen.clear()
+    strided = torch.randn(48, 40)[::2, ::2]  # neither major
+    ops_.gram(strided)
+    assert seen[0].is_contiguous() and torch.equal(seen[0], strided)
 
 
 # --- K3 route rule -----------------------------------------------------------
