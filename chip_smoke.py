@@ -252,6 +252,24 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     in three subprocesses at once: status ok, per-kind collective counts
     and bytes per rank, the Muon Grams' all-reduces over "data",
     argument bytes per rank and seconds.
+22. (a) the port's linter: ``python -m repro_torch.analysis
+    src/repro_torch --baseline lint-baseline-torch.json --format=json``
+    in a subprocess (the linter needs neither JAX nor torch): rc 0, no
+    finding, no parse error, no stale baseline entry, 7 rules; the file
+    count and the seconds.  (b) the six ``examples/torch_*.py`` on the
+    card at their own defaults, each under its own deadline
+    (EXAMPLE_TIMEOUT), its wall seconds printed and its own accuracy
+    lines held to the reference's limits:
+    ``torch_quickstart.py`` (f64, n = 512; no kernel launch),
+    ``torch_distributed_svd.py`` as a script (8 gloo ranks sharing the
+    card; its ranks' launches are not counted), ``torch_svd_serve.py``,
+    ``torch_svd_topk.py``, ``torch_train_lm.py --full`` (mamba2-130m at
+    full width and depth, EXAMPLE_TRAIN: to its periodic checkpoint,
+    then resumed from it; K1/K2 = phase 20c's per step times the steps)
+    and ``torch_serve_lm.py`` (no kernel launch).  Those that run in
+    this process are driven through their ``main(argv)`` with every
+    launch count set to 0 before and read after (``example_<name>`` in
+    every kernel record's ``launches_by_path``).
 
 Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
 paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
@@ -261,7 +279,7 @@ before it is a JSON object with one record per kernel and route
 (``gram/simt``, ``gram/wgmma``, ``grouped_combine``, ``matmul/simt``,
 ``matmul/wgmma``, ``flash_attention/wgmma``, ``flash_attention/simt``),
 each with its launches on every path above (``launches_by_path``,
-phase 20's serving and training runs included);
+phase 20's serving and training runs and phase 22's examples included);
 the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line.  It also exits non-zero
 when no CUDA device is present (unless rehearsing on the CPU) and when
@@ -417,6 +435,36 @@ SHARDED_ROWS_CASES = (("stages/0/mlp/wo", (2, 2)),
 SHARDED_ROWS_DEADLINE = 300
 DRYRUN_CELL = ("qwen3-8b", "train_4k")
 DRYRUN_TIMEOUT = 300
+# phase 22: (a) the port's linter (``python -m repro_torch.analysis``) over
+# src/repro_torch against its committed baseline, in a subprocess: rc 0,
+# no finding, no parse error, LINT_RULES rules; (b) the six
+# examples/torch_*.py on the card at their own defaults, each under its
+# own deadline (seconds), torch_train_lm.py with --full (mamba2-130m at
+# full width and depth) at EXAMPLE_TRAIN's batch and sequence: first to
+# the step of its periodic checkpoint (the example's ckpt_every = 50),
+# then resumed from it on the same --ckpt-dir to the second step count.
+# Each example's accuracy lines are held to the reference's own limits:
+# f64 orthogonality 1e-13 and reconstruction / singular values 1e-12
+# (tests/test_solver.py, tests/test_grouped.py), top-k values 1e-10 of
+# s_max and the adaptive residual 1e-5 (tests/test_spectral.py), the f32
+# service lane ACCURACY_TOL
+LINT_RULES = 7
+LINT_TIMEOUT = 120
+EXAMPLE_TRAIN = {"batch": 2, "seq": 512, "steps": (50, 55)}
+EXAMPLE_TIMEOUT = {"quickstart": 90, "distributed_svd": 240,
+                   "svd_serve": 90, "svd_topk": 90, "train_lm": 240,
+                   "serve_lm": 90}
+F64_ORTH_TOL = 1e-13
+F64_REC_TOL = 1e-12
+TOPK_S_RTOL = 1e-10
+TOPK_RESIDUAL_TOL = 1e-5
+# the rehearsal's toy sizes (no --full)
+EXAMPLE_REHEARSAL = {"quickstart": ["--n", "64"],
+                     "distributed_svd": ["--m", "64", "--n", "32"],
+                     "svd_topk": ["--m", "256", "--n", "64", "--k", "8"],
+                     "serve_lm": ["--batch", "2", "--prompt", "16",
+                                  "--gen", "4"],
+                     "train_lm": {"batch": 2, "seq": 32, "steps": (2, 3)}}
 # the CPU rehearsal: the same cases on the smoke configs at a tiny size
 SERVE_LM_REHEARSAL = {
     "20a": {"layers": 2, "serve": {"batch": 2, "prompt": 48, "gen": 6,
@@ -5072,6 +5120,278 @@ def phase_dryrun(torch):
     return rec
 
 
+# --- phase 22: the linter and the six examples on the card ------------------
+
+
+def phase_lint():
+    """Phase 22a: the port's linter CLI over src/repro_torch against its
+    committed baseline, and its rule list, in subprocesses (no JAX is
+    needed, nor torch)."""
+    say("== phase 22a: python -m repro_torch.analysis src/repro_torch "
+        "--baseline lint-baseline-torch.json --format=json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cli = [sys.executable, "-m", "repro_torch.analysis"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        cli + ["src/repro_torch", "--baseline", "lint-baseline-torch.json",
+               "--format=json"], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=LINT_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"22a: the linter exited {out.returncode}: "
+          f"{out.stdout[-3000:]} {out.stderr[-2000:]}")
+    rep = json.loads(out.stdout)
+    listed = subprocess.run(cli + ["--list-rules"], cwd=HERE, env=env,
+                            capture_output=True, text=True,
+                            timeout=LINT_TIMEOUT)
+    check(listed.returncode == 0, f"22a: --list-rules exited "
+          f"{listed.returncode}: {listed.stderr[-2000:]}")
+    rules = [line.split(":", 1)[0] for line in listed.stdout.splitlines()]
+    import importlib.util
+
+    rec = {"files": rep["files"], "findings": rep["findings"],
+           "errors": rep["errors"], "baselined": len(rep["baselined"]),
+           "suppressed": rep["suppressed"],
+           "stale_baseline": rep["stale_baseline"], "rules": rules,
+           "seconds": secs,
+           "jax_installed": importlib.util.find_spec("jax") is not None}
+    say(f"22a: {rep['files']} files, {len(rep['findings'])} findings, "
+        f"{len(rep['errors'])} errors, {rec['baselined']} baselined, "
+        f"{rep['suppressed']} suppressed, {len(rules)} rules {rules}; "
+        f"{secs:.2f} s (JAX installed: {rec['jax_installed']})")
+    check(rep["ok"] and rep["findings"] == [] and rep["errors"] == []
+          and rep["stale_baseline"] == [],
+          f"22a: the port is not lint clean: {rep}")
+    check(len(rules) == LINT_RULES, f"22a: {len(rules)} rules, expected "
+          f"{LINT_RULES}: {rules}")
+    return rec
+
+
+def load_example(name):
+    """The module of examples/torch_<name>.py."""
+    import importlib.util
+
+    path = os.path.join(HERE, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, counters, name, runs):
+    """Drive examples/torch_<name>.py in this process: ``main(argv)`` for
+    each argv of ``runs``, under the example's deadline, its output
+    captured (and echoed), every launch count set to 0 just before the
+    first run and read just after the last.  The signal handlers a run
+    installs (the training loop's) are put back.  Returns (the outputs,
+    the printed text of each run, launches, wall seconds)."""
+    import contextlib
+    import io
+    import signal
+
+    mod = load_example(name)
+    limit = EXAMPLE_TIMEOUT[name]
+
+    def expire(signum, frame):
+        raise TimeoutError(f"22b: torch_{name}.py did not finish within "
+                           f"{limit} s")
+
+    saved = {sig: signal.getsignal(sig)
+             for sig in (signal.SIGINT, signal.SIGTERM, signal.SIGALRM)}
+    outs, texts = [], []
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, limit)
+    try:
+        for argv in runs:
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    outs.append(mod.main(argv))
+            finally:
+                texts.append(buf.getvalue())
+                say(buf.getvalue().rstrip())
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"22b: torch_{name}.py {runs[len(texts) - 1]} raised {e!r}")
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    secs = time.perf_counter() - t0
+    return outs, texts, read_counts(counters), secs
+
+
+def run_example_ranks(device, args):
+    """examples/torch_distributed_svd.py as a script (its ranks are its
+    children), in a session of its own so that a deadline stops the
+    ranks too.  Returns (stdout, wall seconds)."""
+    import signal
+
+    limit = EXAMPLE_TIMEOUT["distributed_svd"]
+    cmd = [sys.executable,
+           os.path.join(HERE, "examples", "torch_distributed_svd.py"),
+           "--device", device.type] + args
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        fail(f"22b: torch_distributed_svd.py did not finish within "
+             f"{limit} s")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait(10)
+    secs = time.perf_counter() - t0
+    say(out.rstrip())
+    check(p.returncode == 0, f"22b: torch_distributed_svd.py exited "
+          f"{p.returncode}: {err[-4000:]}")
+    return out, secs
+
+
+def printed_values(text, key):
+    """The numbers printed as ``key=value`` (or ``key: value``)."""
+    vals = []
+    for line in text.splitlines():
+        for part in line.replace(":", "=").split():
+            if part.startswith(key + "="):
+                vals.append(float(part.split("=", 1)[1]))
+    return vals
+
+
+def phase_examples(torch, device, rehearse, lm_rec):
+    """Phase 22b: the six examples at their own defaults on the card (at
+    toy size in a rehearsal), each checked against the reference's limits,
+    with its wall seconds and, where it runs in this process, its K1-K4
+    launches."""
+    import ast
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    counters = kernel_modules()
+    dev = ["--device", str(device)]
+    small = EXAMPLE_REHEARSAL if rehearse else {}
+    train = small.get("train_lm", EXAMPLE_TRAIN)
+    rec = {}
+    zero = {k: 0 for k in read_counts(counters)}
+
+    def done(name, secs, launches, **extra):
+        rec[name] = dict(extra, seconds=secs, launches=launches)
+        if isinstance(launches, dict):
+            ran = {k: v for k, v in launches.items() if v}
+            launches = f"K1 {launches['gram']} / K2 " \
+                f"{launches['grouped_combine']}, every kernel {ran}"
+        say(f"22b {name}: {secs:.1f} s; launches {launches}")
+
+    say("== phase 22b: examples/torch_quickstart.py")
+    (out,), _, launches, secs = run_example(
+        torch, counters, "quickstart", [dev + small.get("quickstart", [])])
+    done("quickstart", secs, launches, method=out["method"],
+         **{k: out[k] for k in ("residual", "orth_u", "sigma_err",
+                                "zolo_iterations", "zolo_orth",
+                                "zolo_rec", "qdwh_iterations")})
+    check(out["residual"] < F64_REC_TOL and out["sigma_err"] < F64_REC_TOL
+          and out["orth_u"] < F64_ORTH_TOL and out["zolo_orth"]
+          < F64_ORTH_TOL and out["zolo_rec"] < F64_REC_TOL,
+          f"22b quickstart: beyond the f64 limits {rec['quickstart']}")
+    check(out["qdwh_iterations"] >= out["zolo_iterations"],
+          f"22b quickstart: QDWH took fewer iterations than Zolo-PD "
+          f"{rec['quickstart']}")
+    check(launches == zero, f"22b quickstart: an f64 solve launched "
+          f"{launches}")
+
+    say("== phase 22b: examples/torch_distributed_svd.py (8 gloo ranks"
+        + (" sharing the card)" if on_card else ")"))
+    text, secs = run_example_ranks(device,
+                                   small.get("distributed_svd", []))
+    orth, rec_err = printed_values(text, "orth"), printed_values(text, "rec")
+    s_err = [float(line.rsplit(":", 1)[1]) for line in text.splitlines()
+             if "singular-value error vs LAPACK" in line]
+    done("distributed_svd", secs, "not counted (its ranks are child "
+         "processes)", orth=orth, rec=rec_err, sigma_err=s_err,
+         retraces=printed_values(text, "retraces"))
+    check("ranks: 8 (gloo" in text and len(orth) == 4 and len(rec_err) == 2
+          and len(s_err) == 2, f"22b distributed_svd: unexpected output "
+          f"{text[-3000:]}")
+    check(max(orth) < F64_ORTH_TOL and max(rec_err) < F64_REC_TOL
+          and max(s_err) < F64_REC_TOL and printed_values(
+              text, "retraces") == [0.0, 0.0],
+          f"22b distributed_svd: beyond the f64 limits "
+          f"{rec['distributed_svd']}")
+
+    say("== phase 22b: examples/torch_svd_serve.py")
+    (out,), _, launches, secs = run_example(torch, counters, "svd_serve",
+                                            [dev])
+    done("svd_serve", secs, launches, **out)
+    check(out["solves"] == 24 and out["retraces"] == 0
+          and out["hit_rate"] == 1.0
+          and out["worst_rec"]["float64"] < F64_REC_TOL
+          and out["worst_rec"]["float32"] < ACCURACY_TOL,
+          f"22b svd_serve: {out}")
+
+    say("== phase 22b: examples/torch_svd_topk.py")
+    (out,), _, launches, secs = run_example(
+        torch, counters, "svd_topk", [dev + small.get("svd_topk", [])])
+    done("svd_topk", secs, launches, **out)
+    check(out["strategy"] == "sketch" and out["near_full_strategy"]
+          == "dense" and out["rel_err"] <= TOPK_S_RTOL
+          and out["adaptive"]["residual"] <= TOPK_RESIDUAL_TOL
+          and not out["adaptive"]["escalated"] and out["solves"] == 4
+          and out["retraces"] == 0, f"22b svd_topk: {out}")
+
+    first, second = train["steps"]
+    say(f"== phase 22b: examples/torch_train_lm.py"
+        f"{'' if rehearse else ' --full'} --batch {train['batch']} --seq "
+        f"{train['seq']}: {first} steps, then resumed to {second}")
+    ckpt_dir = os.path.join(HERE, "build", "example_train_lm")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = dev + ["--batch", str(train["batch"]), "--seq",
+                  str(train["seq"]), "--ckpt-dir", ckpt_dir] + \
+        ([] if rehearse else ["--full"])
+    outs, texts, launches, secs = run_example(
+        torch, counters, "train_lm", [args + ["--steps", str(first)],
+                                      args + ["--steps", str(second)]])
+    losses = [ast.literal_eval(line)["loss"] for t in texts
+              for line in t.splitlines() if line.startswith("{'step'")]
+    done("train_lm", secs, launches, runs=outs, losses=losses)
+    check(outs[0]["start_step"] == 0 and outs[0]["step"] == first
+          and outs[0]["latest_ckpt"] == first
+          and "resumed" not in texts[0], f"22b train_lm: {outs[0]}")
+    check(f"[loop] resumed from step {first}" in texts[1]
+          and outs[1]["start_step"] == first and outs[1]["step"] == second,
+          f"22b train_lm: no resume from step {first}: {outs[1]}")
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"22b train_lm: a logged loss is not finite {losses}")
+    if on_card:
+        per_step = lm_rec["20c_train"]["launches_per_step"]
+        want = {k: second * per_step[k] for k in ("gram",
+                                                  "grouped_combine")}
+        check({k: launches[k] for k in want} == want,
+              f"22b train_lm: K1/K2 {launches} over {second} steps, "
+              f"expected phase 20c's per step ({per_step}) times {second}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    say("== phase 22b: examples/torch_serve_lm.py")
+    (out,), _, launches, secs = run_example(
+        torch, counters, "serve_lm", [dev + small.get("serve_lm", [])])
+    done("serve_lm", secs, launches, archs=out)
+    gen = 4 if rehearse else 48
+    check(len(out) == 4 and all(r_["in_vocab"] and r_["shape"][1] == gen
+                                for r_ in out.values()),
+          f"22b serve_lm: {out}")
+    check(launches == zero, f"22b serve_lm: serving launched {launches}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 22b ({rec['seconds']:.1f} s): "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in rec.items()
+                    if isinstance(v, dict)))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -5198,6 +5518,11 @@ def main(argv=None) -> int:
         torch, device, clock, momenta)
     del momenta
     record["dryrun"] = phase_dryrun(torch)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    record["lint"] = phase_lint()
+    record["examples"] = ex_rec = phase_examples(
+        torch, device, args.rehearse_cpu, lm_rec)
     record["seconds"] = time.perf_counter() - t_start
 
     def muon_row(t):
@@ -5277,6 +5602,11 @@ def main(argv=None) -> int:
         leaf = case["leaf"].rsplit("/", 1)[-1]
         solves[f"muon_sharded_{d_}x{m_}_{TRAIN_ARCH}_{leaf}_rank0"] = \
             case["ranks"][0]["launches"]
+    # phase 22b: each example (its runs together; the distributed one's
+    # ranks are children and are not counted)
+    for name, r_ in ex_rec.items():
+        if isinstance(r_, dict):
+            solves[f"example_{name}"] = r_["launches"]
     entries = [("gram", "simt", times["gram"]["simt"],
                 "f32 %dx%d c=0" % (n, n), "static_solve"),
                ("gram", "wgmma", times["gram"]["wgmma"],
@@ -5296,7 +5626,8 @@ def main(argv=None) -> int:
         key = name if route is None else f"{name}/{route}"
         err = next(row["max_abs_err"] for row in record["parity"]
                    if row["kernel"] == name and row["case"] == case)
-        by_path = {p: counts[key] for p, counts in solves.items()}
+        by_path = {p: counts[key] if isinstance(counts, dict) else counts
+                   for p, counts in solves.items()}
         if key in paths:
             # its own path: its kernels.ops entry, driven once per route
             by_path[f"kernels.ops.{name}"] = paths[key][key]

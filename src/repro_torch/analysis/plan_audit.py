@@ -454,6 +454,9 @@ def executed_dynamic_psums(first_mode: str, iters: int,
     the plan does not pin l), the first iteration's term and fused
     residual, then one Gram and one residual per Cholesky iteration; one
     "zolo" combine per iteration."""
+    if first_mode not in MODE_SEP_PSUMS:
+        raise ValueError(f"unknown first_mode {first_mode!r}; known: "
+                         f"{sorted(MODE_SEP_PSUMS)}")
     return {"sep": int(estimate) + MODE_SEP_PSUMS[first_mode] + 1
             + (iters - 1) * 2,
             "zolo": iters}

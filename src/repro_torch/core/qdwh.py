@@ -149,6 +149,15 @@ def qdwh_pd(a, *, alpha=None, l=None, max_iters: int = 12,
     return x, None, info
 
 
+def upload(values, dtype, device) -> torch.Tensor:
+    """A host list as a ``dtype`` tensor on ``device``, without waiting for
+    the device: the copy from pageable host memory is staged by CUDA
+    at once (``non_blocking``), where a blocking copy (what
+    ``torch.tensor(..., device=)`` makes) first synchronises the stream —
+    a static solve would then hold the host until the card caught up."""
+    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
 def qdwh_pd_static(a, *, l0: Optional[float] = None, max_iters: int = 8,
                    want_h: bool = True, qr_iters: Optional[int] = None,
                    schedule=None):
@@ -169,23 +178,24 @@ def qdwh_pd_static(a, *, l0: Optional[float] = None, max_iters: int = 8,
                          "schedule=")
     dev = a.device
     cdt = torch.promote_types(a.dtype, torch.float32)
+    # the schedule staged in one copy and the info filled on the device
+    coefs = upload([row[:3] for row in sched], cdt, dev)
     x = a
-    for i, (ca, cb, cc, _) in enumerate(sched):
+    for i, (_, _, cc, _) in enumerate(sched):
         use_qr = cc > 100.0 if qr_iters is None else i < qr_iters
-        fa, fb, fc = (torch.tensor(v, dtype=cdt, device=dev)
-                      for v in (ca, cb, cc))
+        fa, fb, fc = coefs[i]
         if use_qr:
             x = _qdwh_qr_iter(x, fa, fb, fc)
         else:
             x = _qdwh_chol_iter(x, fa, fb, fc)
     f32 = torch.float32
     info = PolarInfo(
-        iterations=torch.tensor(len(sched), dtype=torch.int32, device=dev),
+        iterations=torch.full((), len(sched), dtype=torch.int32, device=dev),
         residual=torch.zeros((), dtype=a.dtype, device=dev),
-        l_final=torch.tensor(sched[-1][3], dtype=f32, device=dev),
+        l_final=torch.full((), sched[-1][3], dtype=f32, device=dev),
         converged=torch.ones((), dtype=torch.bool, device=dev),
-        l_init=torch.tensor(float(l0) if l0 is not None else float("nan"),
-                            dtype=f32, device=dev))
+        l_init=torch.full((), float(l0) if l0 is not None else float("nan"),
+                          dtype=f32, device=dev))
     if want_h:
         return x, form_h(x, a), info
     return x, None, info

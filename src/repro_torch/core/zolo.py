@@ -47,7 +47,7 @@ import torch
 from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import linalg as _linalg
 from repro_torch.core import norms as _norms
-from repro_torch.core.qdwh import PolarInfo, form_h
+from repro_torch.core.qdwh import PolarInfo, form_h, upload
 from repro_torch.core.structured_qr import \
     structured_qr_q1q2 as _structured_qr_q1q2
 from repro_torch.kernels import ref as _kref
@@ -384,15 +384,6 @@ def zolo_pd(a, r: int = 3, *, alpha=None, l=None, max_iters: int = 8,
     if want_h:
         return x, form_h(x, a), info
     return x, None, info
-
-
-def upload(values, dtype, device) -> torch.Tensor:
-    """A host list as a ``dtype`` tensor on ``device``, without waiting for
-    the device: the copy from pageable host memory is staged by CUDA
-    at once (``non_blocking``), where a blocking copy (what
-    ``torch.tensor(..., device=)`` makes) first synchronises the stream —
-    a static solve would then hold the host until the card caught up."""
-    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 
 def zolo_pd_static(a, *, l0: Optional[float] = None,

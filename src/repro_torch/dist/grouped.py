@@ -47,7 +47,7 @@ from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import norms as _norms
 from repro_torch.core import zolo as _zolo
 from repro_torch.core import zolo_cuda as _zolo_cuda
-from repro_torch.core.qdwh import PolarInfo
+from repro_torch.core.qdwh import PolarInfo, upload
 from repro_torch.dist import grouped_ops as _gops
 from repro_torch.kernels import ref as _kref
 
@@ -244,9 +244,9 @@ def grouped_zolo_pd_static(a, *, mesh: ZoloGroupMesh,
     dev = a.device
     j = mesh.zolo_index
     # (iters, 1): this group's shift and weight per iteration
-    c_grp = _zolo.upload([[it.c[2 * j]] for it in sched], cdt, dev)
-    a_grp = _zolo.upload([[it.a[j]] for it in sched], cdt, dev)
-    mhats = _zolo.upload([it.mhat for it in sched], cdt, dev)
+    c_grp = upload([[it.c[2 * j]] for it in sched], cdt, dev)
+    a_grp = upload([[it.a[j]] for it in sched], cdt, dev)
+    mhats = upload([it.mhat for it in sched], cdt, dev)
     x0 = a if alpha is None else a / torch.as_tensor(alpha, dtype=a.dtype,
                                                      device=dev)
     x = _row_block(x0, mesh, m_pad)

@@ -57,7 +57,10 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 flash_attention_plain = flash_attention_ref  # the plain PyTorch version
 
+# accumulation dtype of the kernel's sums, and where the conditioning
+# envelope measured at it lives (kernel-accum-envelope lint)
 FLASH_ACCUM_DTYPE = torch.float32
+FLASH_KAPPA_ENVELOPE = "repro_torch.core.svd:CUDA_KAPPA_ENVELOPE"
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 ROUTES = ("simt", "wgmma")

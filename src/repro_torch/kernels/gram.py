@@ -60,7 +60,10 @@ from repro_torch.kernels.ref import gram_ref
 
 gram_plain = gram_ref  # the plain PyTorch version of this kernel
 
+# accumulation dtype of the kernel's sums, and where the conditioning
+# envelope measured at it lives (kernel-accum-envelope lint)
 GRAM_ACCUM_DTYPE = torch.float32
+GRAM_KAPPA_ENVELOPE = "repro_torch.core.svd:CUDA_KAPPA_ENVELOPE"
 GRAM_INPUT_DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("simt", "wgmma")
 # csrc/gram.cu bakes ref.SHIFT_RIDGE_FACTOR in as 8.0f * FLT_EPSILON

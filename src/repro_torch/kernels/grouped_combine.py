@@ -34,7 +34,10 @@ from repro_torch.kernels.ref import grouped_combine_ref
 
 grouped_combine_plain = grouped_combine_ref  # the plain PyTorch version
 
+# accumulation dtype of the kernel's sums, and where the conditioning
+# envelope measured at it lives (kernel-accum-envelope lint)
 COMBINE_ACCUM_DTYPE = torch.float32
+COMBINE_KAPPA_ENVELOPE = "repro_torch.core.svd:CUDA_KAPPA_ENVELOPE"
 COMBINE_DTYPES = (torch.float32, torch.bfloat16)
 MAX_R = 8
 

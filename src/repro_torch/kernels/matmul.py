@@ -49,7 +49,10 @@ from repro_torch.kernels.ref import matmul_ref
 
 matmul_plain = matmul_ref  # the plain PyTorch version of this kernel
 
+# accumulation dtype of the kernel's sums, and where the conditioning
+# envelope measured at it lives (kernel-accum-envelope lint)
 MATMUL_ACCUM_DTYPE = torch.float32
+MATMUL_KAPPA_ENVELOPE = "repro_torch.core.svd:CUDA_KAPPA_ENVELOPE"
 MATMUL_INPUT_DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("simt", "wgmma")
 _MAX_DIM = 65_535 * 128  # keeps tile counts and row offsets in int range

@@ -275,6 +275,9 @@ def run_step(step_fn, args, mesh, rules=None):
         contextlib.nullcontext()
     rec = CollectiveRecorder(mesh_group_axes(mesh))
     t0 = time.perf_counter()
+    # implicit_replication: as in the train step, the step's plain-tensor
+    # constants are the same on every rank; the recorder counts the
+    # collectives the placements make
     with hints, implicit_replication(), rec:
         step_fn(*args)
     return rec.records, rec.flops, time.perf_counter() - t0

@@ -69,12 +69,20 @@ MIXERS = {
 # --- single layer -----------------------------------------------------------
 
 
-def layer_init(gen: torch.Generator, kind: str, cfg, dtype):
+def _mixer(kind: str) -> _Mixer:
+    """The mixer of block ``kind``; an unknown kind raises ValueError
+    naming the known ones."""
     if kind not in MIXERS:
-        raise ValueError(kind)
+        raise ValueError(f"unknown block kind {kind!r}; known: "
+                         f"{sorted(MIXERS)}")
+    return MIXERS[kind]
+
+
+def layer_init(gen: torch.Generator, kind: str, cfg, dtype):
+    mixer = _mixer(kind)
     p: Dict[str, Any] = {"norm1": L.norm_param(cfg.d_model, cfg.norm_type,
                                                gen.device)}
-    p["mixer"] = MIXERS[kind].init(gen, cfg, dtype)
+    p["mixer"] = mixer.init(gen, cfg, dtype)
     if cfg.mlp_type != "none":
         p["norm2"] = L.norm_param(cfg.d_model, cfg.norm_type, gen.device)
         if cfg.num_experts:
@@ -120,8 +128,9 @@ def _mlp(params, x, cfg):
 def layer_forward(params, kind: str, x, positions, cfg):
     """Full-sequence layer (train / prefill).  Returns (x, mixer_cache,
     aux)."""
+    mixer = _mixer(kind)
     h = L.norm(x, params["norm1"], cfg.norm_type)
-    mix, cache_out = MIXERS[kind].forward(params["mixer"], h, positions, cfg)
+    mix, cache_out = mixer.forward(params["mixer"], h, positions, cfg)
     x, aux = _mlp(params, x + settle(mix), cfg)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=x.device)
@@ -131,20 +140,21 @@ def layer_forward(params, kind: str, x, positions, cfg):
 def layer_decode(params, kind: str, x, pos, cache, cfg):
     """One-token layer step; updates ``cache`` in place.  Returns (x,
     cache)."""
+    mixer = _mixer(kind)
     h = L.norm(x, params["norm1"], cfg.norm_type)
-    mix, cache = MIXERS[kind].decode(params["mixer"], h, pos, cache, cfg)
+    mix, cache = mixer.decode(params["mixer"], h, pos, cache, cfg)
     x, _ = _mlp(params, x + mix, cfg)
     return x, cache
 
 
 def init_layer_cache(kind: str, cfg, batch: int, max_len: int, dtype,
                      device=None):
-    return MIXERS[kind].cache(cfg, batch, max_len, dtype, device)
+    return _mixer(kind).cache(cfg, batch, max_len, dtype, device)
 
 
 def prefill_layer_cache(kind: str, cfg, max_len, mixer_cache, dtype):
     """Convert a layer_forward mixer cache into the decode cache format."""
-    return MIXERS[kind].fill(cfg, max_len, mixer_cache, dtype)
+    return _mixer(kind).fill(cfg, max_len, mixer_cache, dtype)
 
 
 # --- stages -----------------------------------------------------------------

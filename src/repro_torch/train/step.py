@@ -82,6 +82,10 @@ def _replication(tree):
         from torch.distributed.tensor.experimental import \
             implicit_replication
 
+        # implicit_replication: the model's plain-tensor constants
+        # (positions, RoPE tables, masks, zero accumulators) are the same
+        # on every rank, so reading them as replicated is exact; the
+        # collectives of the step come from the parameters' placements
         return implicit_replication()
     return contextlib.nullcontext()
 

@@ -61,10 +61,33 @@ def test_no_jax_or_reference_imports():
             "checkpoint/__init__.py", "checkpoint/manager.py",
             "launch/train.py", "models/moe.py", "models/ssm.py",
             "models/rglru.py", "serve/engine.py", "launch/serve.py",
-            "dist/sharding.py", "launch/mesh.py", "launch/dryrun.py"} <= names
+            "dist/sharding.py", "launch/mesh.py", "launch/dryrun.py",
+            "analysis/__main__.py", "analysis/lint/__init__.py",
+            "analysis/lint/engine.py", "analysis/lint/rules.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, bad
+
+
+def test_examples_import_no_jax_or_reference():
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {p.name for p in files} == {
+        "torch_quickstart.py", "torch_distributed_svd.py",
+        "torch_svd_serve.py", "torch_svd_topk.py", "torch_train_lm.py",
+        "torch_serve_lm.py"}
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
+           for p in files for line, mod in _imports(p) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_the_lint_path_loads_no_torch():
+    code = ("import sys\n"
+            "import repro_torch.analysis, repro_torch.analysis.lint\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            "assert main(['--list-rules']) == 0\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'repro', 'numpy')))")
+    assert _run(code, 0) == "[]"
 
 
 def _run(code, hashseed):
