@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import linalg as _linalg
 from repro_torch.core import norms as _norms
@@ -67,8 +68,9 @@ class PolarInfo(NamedTuple):
 
 def form_h(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """H = (Q^T A + (Q^T A)^T) / 2 — the Hermitian polar factor."""
-    qa = q.mT @ a
-    return 0.5 * (qa + qa.mT)
+    with obs.span("svd.form_h"):
+        qa = q.mT @ a
+        return 0.5 * (qa + qa.mT)
 
 
 def _qdwh_qr_iter(x, a, b, c):
@@ -98,8 +100,8 @@ def _qdwh_chol_iter(x, a, b, c):
     z = c.to(fdt) * (xf.mT @ xf) + torch.eye(n, dtype=fdt, device=x.device)
     l = _linalg.cholesky(z)
     # W = Z^{-1} X^T by two triangular solves; X Z^{-1} = W^T
-    y = torch.linalg.solve_triangular(l, xf.mT, upper=False)
-    w = torch.linalg.solve_triangular(l.mT, y, upper=True)
+    y = _linalg.solve_triangular(l, xf.mT, upper=False)
+    w = _linalg.solve_triangular(l.mT, y, upper=True)
     return ((b / c).to(fdt) * xf + (a - b / c).to(fdt) * w.mT).to(x.dtype)
 
 

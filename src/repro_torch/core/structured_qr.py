@@ -158,7 +158,7 @@ def cholesky_qr2(x, shift_scale: float = 1.0):
             g, dim1=-2, dim2=-1).sum(-1)[..., None, None]
         l = _linalg.cholesky(g + shift * eye)
         # P L^{-T}, as the transposed left solve L^{-1} P^T
-        return torch.linalg.solve_triangular(l, p.mT, upper=False).mT
+        return _linalg.solve_triangular(l, p.mT, upper=False).mT
 
     return pass_(pass_(x))
 

@@ -133,7 +133,7 @@ def _first_pass_ridge(z, c_eff, dtype):
 
 def _solve_lower(l, b):
     """L^{-1} B (left solve, lower triangular)."""
-    return torch.linalg.solve_triangular(l, b, upper=False, left=True)
+    return _linalg.solve_triangular(l, b, upper=False)
 
 
 def _chol_terms(x, c_odd, gram=None, *, ops: ZoloOps = DEFAULT_OPS):
@@ -157,8 +157,7 @@ def _chol_terms(x, c_odd, gram=None, *, ops: ZoloOps = DEFAULT_OPS):
     l = _cholesky(z)
     xt = x.mT.to(fdtype).expand((r,) + x.shape[:-2] + (n, m))
     # Z^{-1} X^T = L^{-T} (L^{-1} X^T), (r, n, m) in fdtype
-    return torch.linalg.solve_triangular(l.mT, _solve_lower(l, xt),
-                                         upper=True, left=True)
+    return _linalg.solve_triangular(l.mT, _solve_lower(l, xt), upper=True)
 
 
 def term_sum_chol(x, c_odd, a, gram=None, *, ops: ZoloOps = DEFAULT_OPS):

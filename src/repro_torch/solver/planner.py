@@ -32,7 +32,9 @@ card unless ``device="cpu"`` is passed; the one-call wrappers
 :func:`plan_for_call`.  ``svd_verified``/``svd_batched_verified``
 append the solve's health (:mod:`repro_torch.resilience.health`).
 ``audit()`` runs the plan under the plan auditor
-(:mod:`repro_torch.analysis.plan_audit`).
+(:mod:`repro_torch.analysis.plan_audit`).  A solve opens the spans of
+:mod:`repro_torch.obs` (``svd.solve`` and its stages), which cost a flag
+test each while they are off.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 import repro_torch.core.svd  # noqa: F401  (populates the registry)
+from repro_torch import obs
 from repro_torch.core import coeffs as _coeffs
 from repro_torch.core import norms as _norms
 from repro_torch.core import registry as _registry
@@ -544,11 +547,14 @@ class SvdPlan:
                 and not self._spec.is_oracle):
             # precomputed-schedule backends assume sigma_max <= 1; dynamic
             # backends estimate their own alpha on the device
-            a_work, alpha = self._prescale(a_work, reduce)
-        if self.mode == "grouped":
-            q, h, info = self._spec.grouped_fn(a_work, mesh=self.mesh, **kw)
-        else:
-            q, h, info = self._spec.fn(a_work, **kw)
+            with obs.span("svd.prescale"):
+                a_work, alpha = self._prescale(a_work, reduce)
+        with obs.span("svd.polar"):
+            if self.mode == "grouped":
+                q, h, info = self._spec.grouped_fn(a_work, mesh=self.mesh,
+                                                   **kw)
+            else:
+                q, h, info = self._spec.fn(a_work, **kw)
         return q, h, info, transposed, alpha, out_dtype
 
     def _polar_impl(self, a, want_h=_UNSET, extra=None, transposed=None,
@@ -571,23 +577,25 @@ class SvdPlan:
     def _svd_impl_info(self, a, extra=None):
         q, h, info, transposed, alpha, out_dtype = \
             self._polar_canonical(a, True, extra)
-        # no sub-f32 eigensolver: a bf16 H goes to eigh in f32
-        h = h.to(torch.promote_types(h.dtype, torch.float32))
-        w, v = self._eig_spec.fn(h, **self._eig_kwargs)
-        u = q.to(v.dtype) @ v
-        # ascending -> descending; fold any tiny negative eigenvalue's
-        # sign into U so that s >= 0
-        sign = torch.where(w < 0, -1.0, 1.0).to(u.dtype)
-        s = torch.abs(w)
-        if alpha is not None:
-            s = s * alpha.to(s.dtype)
-        u = u * sign[..., None, :]
-        order = torch.argsort(-s, dim=-1, stable=True)  # as jnp.argsort
-        s = torch.take_along_dim(s, order, dim=-1)
-        u = torch.take_along_dim(u, order[..., None, :], dim=-1)
-        v = torch.take_along_dim(v, order[..., None, :], dim=-1)
-        vh = v.mT
-        u, s, vh = u.to(out_dtype), s.to(out_dtype), vh.to(out_dtype)
+        with obs.span("svd.eigh", n=h.shape[-1]):
+            # no sub-f32 eigensolver: a bf16 H goes to eigh in f32
+            h = h.to(torch.promote_types(h.dtype, torch.float32))
+            w, v = self._eig_spec.fn(h, **self._eig_kwargs)
+        with obs.span("svd.lift"):
+            u = q.to(v.dtype) @ v
+            # ascending -> descending; fold any tiny negative eigenvalue's
+            # sign into U so that s >= 0
+            sign = torch.where(w < 0, -1.0, 1.0).to(u.dtype)
+            s = torch.abs(w)
+            if alpha is not None:
+                s = s * alpha.to(s.dtype)
+            u = u * sign[..., None, :]
+            order = torch.argsort(-s, dim=-1, stable=True)  # as jnp.argsort
+            s = torch.take_along_dim(s, order, dim=-1)
+            u = torch.take_along_dim(u, order[..., None, :], dim=-1)
+            v = torch.take_along_dim(v, order[..., None, :], dim=-1)
+            vh = v.mT
+            u, s, vh = u.to(out_dtype), s.to(out_dtype), vh.to(out_dtype)
         if transposed:
             # a = (u s vh)^T = v s u^T
             return vh.mT, s, u.mT, info
@@ -646,7 +654,8 @@ class SvdPlan:
     def svd_info(self, a):
         """``svd`` plus the polar backend's PolarInfo: (u, s, vh, info)."""
         self._check(a)
-        return self._svd_impl_info(a)
+        with obs.span("svd.solve"):
+            return self._svd_impl_info(a)
 
     def svd_verified(self, a):
         """``svd`` plus its health: ``(u, s, vh, health)``.
@@ -659,7 +668,8 @@ class SvdPlan:
         :func:`repro_torch.resilience.health.judge_plan`.
         """
         self._check(a)
-        return self._svd_verified_impl(a)
+        with obs.span("svd.solve"):
+            return self._svd_verified_impl(a)
 
     def polar(self, a, want_h: bool = True):
         """(q, h, info) with A ~= Q H."""

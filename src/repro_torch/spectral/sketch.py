@@ -43,6 +43,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import norms as _norms
 from repro_torch.core.structured_qr import cholesky_qr2
 
@@ -140,11 +141,21 @@ def sketch_topk(a, *, k: int, q_iters: int, draw: Dict[str, torch.Tensor],
 
     ``small_svd`` solves the (l, n) projected panel (a cached
     :class:`repro_torch.solver.SvdPlan`'s solve).  Returns
-    (u (m, k), s (k,), vh (k, n))."""
-    q = randomized_range(a, q_iters, draw, kind=kind)
-    b = q.mT @ a
-    u_b, s, vh = small_svd(b)
-    u = q @ u_b
+    (u (m, k), s (k,), vh (k, n)).
+
+    Opens the spans ``topk.sketch`` (the range finder and B = QᵀA, with
+    its ``products``: the (m, n, l) products, 2 a power iteration, one
+    for the Gaussian first pass and one for B) and ``topk.panel`` (the
+    panel's solve and the lift)."""
+    m, n = a.shape[-2:]
+    l = draw["omega" if kind == "gauss" else "cols"].shape[-1]
+    products = 2 * int(q_iters) + (2 if kind == "gauss" else 1)
+    with obs.span("topk.sketch", m=m, n=n, l=l, products=products):
+        q = randomized_range(a, q_iters, draw, kind=kind)
+        b = q.mT @ a
+    with obs.span("topk.panel"):
+        u_b, s, vh = small_svd(b)
+        u = q @ u_b
     return u[..., :, :k], s[..., :k], vh[..., :k, :]
 
 

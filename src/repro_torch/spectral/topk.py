@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import registry as _registry
 from repro_torch.solver import planner as _planner
 from repro_torch.solver.config import SvdConfig
@@ -270,7 +271,8 @@ class TopKPlan:
         """(u, s, vh, info); info is the strategy telemetry (d&c:
         converged/count/shift/rounds; else empty)."""
         self._check(a)
-        return self._impl(a, self.draw())
+        with obs.span("topk.request"):
+            return self._impl(a, self.draw())
 
     def topk(self, a):
         """Leading-k triplets (u, s, vh), s descending."""
