@@ -271,6 +271,25 @@ op that launched it; the top kernels printed), its ``eigh`` timed alone
     launch count set to 0 before and read after (``example_<name>`` in
     every kernel record's ``launches_by_path``).
 
+4c. K5 (``kernels/cholesky.py``, batched blocked Cholesky): parity at
+    (4, 1,000), (1, 4,097) and ragged (2, 129), (3, 385) against its
+    plain version (the same blocked algorithm in torch ops), with the
+    strides, zero upper triangle and residual ||L L^T - Z||_F / ||Z||_F
+    of ``cholesky_ex``'s; an indefinite entry's info; then at (4, 11,999,
+    11,999) (the dense solve's shifted Grams): K5's time beside its bound,
+    its plain version and two library yardsticks (the batched
+    ``cholesky_ex`` the port called before K5 and four single-matrix
+    calls), its L against the plain version's (K5_TOL, as at the parity
+    shapes), its residual beside the library's, the cuSOLVER kernels each
+    yardstick runs (by name, from ``torch.profiler``), and the sweep of n
+    over K5_SWEEP_N at batches 1, 2 and 4 against ``cholesky_ex`` (the
+    smallest stack that takes K5; CHOLESKY_MIN_N is a limit of scope).
+    ``--k5-only`` runs phases 1, 2 and 4c alone (record in
+    ``chiprun_out/chip_smoke_k5.json``).  Phase 5 also counts K5's
+    launches a solve (``k5_launches_per_solve``: 3 Choleskys at n =
+    11,999), and 16a a top-k request's (``k5_launches``: 0, its
+    factorizations are at n = 877 < CHOLESKY_MIN_N).
+
 Phases 10-12 run one timed solve each (phases 5 and 7 warmed those
 paths at this shape); 5, 7 and 9 run a warm solve before the timed one.
 
@@ -279,7 +298,9 @@ before it is a JSON object with one record per kernel and route
 (``gram/simt``, ``gram/wgmma``, ``grouped_combine``, ``matmul/simt``,
 ``matmul/wgmma``, ``flash_attention/wgmma``, ``flash_attention/simt``),
 each with its launches on every path above (``launches_by_path``,
-phase 20's serving and training runs and phase 22's examples included);
+phase 20's serving and training runs and phase 22's examples included),
+and ``cholesky`` (K5: its launches a dense solve and a top-k request,
+phase 4c's times and its error against its plain version);
 the last is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero without that line.  It also exits non-zero
 when no CUDA device is present (unless rehearsing on the CPU) and when
@@ -532,6 +553,20 @@ BF16_S_RTOL = 5e-2
 # bf16 is held elementwise by flash_bf16_bound, with this as its f32 term
 K4_TOL_F32 = 1e-5
 KERNEL_MODULES = ("gram", "grouped_combine", "matmul", "flash_attention")
+# K5 (phase 4c): parity shapes (batch, n), the full-size stack, and the
+# sweep beside cholesky_ex by n and batch; its own counter
+# (kernels/cholesky.py::launches), outside KERNEL_MODULES so the other
+# phases' launch dicts keep their keys
+K5_PARITY = ((4, 1000), (1, 4097), (2, 129), (3, 385))
+K5_NEAR_ID = (4, 4096)
+K5_SWEEP_N = (877, 1024, 1408, 2048, 4096, N)
+K5_SWEEP_BATCH = (1, 2, 4)
+K5_PER_SOLVE = 3  # phase 5: two Choleskys in the CholeskyQR2 iteration,
+                  # one in the Cholesky iteration, all at n = 11,999
+# max|L - L_plain| / max|L_plain|, f32 in another summation order at
+# kappa <= ~4e3: on an H100 1.2-1.7e-6 at K5_PARITY, 6.1e-7 at (4, 11,999)
+K5_TOL = 1e-5
+K5_RESID_FACTOR = 4.0  # K5's residual against cholesky_ex's
 # K1, K3 and K4 pick a route per call (kernels/gram.py, matmul.py,
 # flash_attention.py)
 ROUTED = ("gram", "matmul", "flash_attention")
@@ -1516,6 +1551,198 @@ def phase_times_muon(torch, device, clock, shapes):
     return out
 
 
+def spd_stack(torch, device, b, n, seed=0):
+    """b shifted Grams Z_j = G + c_j I of one Gram G = X^T X / n of a
+    Gaussian n x n X (c_j from 1e-3 to 1), f32: the shape and conditioning
+    (kappa <= ~4e3) of the solver's Cholesky stacks."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, n), generator=gen, device=device)
+    g = (x.mT @ x) / n
+    del x
+    c = torch.logspace(-3, 0, max(b, 2), device=device)[:b]
+    return g[None] + c[:, None, None] * torch.eye(n, device=device)
+
+
+def chol_residual(torch, z, l):
+    """max over the stack of ||L L^T - Z||_F / ||Z||_F (Z's lower triangle
+    mirrored), in f32 products (TF32 off)."""
+    zs = torch.tril(z) + torch.tril(z, -1).mT
+    r = torch.linalg.matrix_norm(l @ l.mT - zs) / torch.linalg.matrix_norm(zs)
+    return float(r.amax())
+
+
+def chol_residual_f64(torch, z, l):
+    """chol_residual with the products in f64, a matrix at a time."""
+    out = 0.0
+    for i in range(z.shape[0]):
+        zs = (torch.tril(z[i]) + torch.tril(z[i], -1).mT).double()
+        l64 = l[i].double()
+        out = max(out, float(torch.linalg.matrix_norm(l64 @ l64.mT - zs)
+                             / torch.linalg.matrix_norm(zs)))
+    return out
+
+
+def cusolver_kernels(torch, fn):
+    """{kernel name: device ms} of one call of fn, from torch.profiler;
+    None off the card."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key[:100]] = us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:12])
+
+
+def phase_k5(torch, device, clock, n, batch):
+    """Phase 4c: K5 against its plain version and cuSOLVER (module
+    docstring)."""
+    from repro_torch.kernels import cholesky as kchol
+    from repro_torch.kernels import ref
+
+    say("== phase 4c: K5, batched blocked Cholesky")
+    on_card = device.type == "cuda"
+    call = kchol.cholesky_kernel_call if on_card else ref.cholesky_ref
+    rec = {"parity": []}
+    shapes = K5_PARITY if on_card else ((2, 129), (1, 200))
+    for b, m in shapes:
+        z = spd_stack(torch, device, b, m, seed=m)
+        before = kchol.launches
+        l, info = call(z)
+        lp, infop = ref.cholesky_ref(z)
+        lx, infox = torch.linalg.cholesky_ex(z)
+        clock.sync()
+        err = float((l - lp).abs().amax() / lp.abs().amax())
+        row = {"case": f"({b}, {m}, {m})", "max_rel_err_plain": err,
+               "residual": chol_residual(torch, z, l),
+               "residual_cholesky_ex": chol_residual(torch, z, lx),
+               "launches": kchol.launches - before}
+        say(f"K5 {row}")
+        check(int(info.abs().sum()) == 0 and int(infop.abs().sum()) == 0
+              and int(infox.abs().sum()) == 0, f"K5 {row['case']}: info")
+        check(l.stride() == lx.stride(), f"K5 strides {l.stride()}, "
+              f"cholesky_ex {lx.stride()}")
+        check(bool((torch.triu(l, 1) == 0).all()), "K5 wrote above the "
+              "diagonal")
+        check(err <= K5_TOL, f"K5 against its plain version {err:.3e}")
+        check(row["residual"] <= K5_RESID_FACTOR * row["residual_cholesky_ex"]
+              + 1e-6, f"K5 residual {row}")
+        check(not on_card or row["launches"] == 1, "K5 launches")
+        rec["parity"].append(row)
+    # near the identity (the CholeskyQR2 second pass's Gram): products far
+    # below the diagonal's ulp, where summing them into the matrix instead
+    # of from zero loses them (K5_NEAR_ID)
+    if on_card:
+        b, m = K5_NEAR_ID
+        gen = torch.Generator(device=device).manual_seed(5)
+        # off-diagonal entries ~1e-3, each product ~1e-6 of the diagonal
+        x = torch.randn((m, m), generator=gen, device=device) * 4e-3
+        zn = (torch.eye(m, device=device) + x.mT @ x).expand(b, m, m)
+        zn = zn + torch.logspace(-4, -1, b, device=device)[:, None, None] \
+            * torch.eye(m, device=device)
+        ln, _ = call(zn)
+        lnx, _ = torch.linalg.cholesky_ex(zn)
+        near = {"case": f"near identity ({b}, {m}, {m})",
+                "residual_f64": chol_residual_f64(torch, zn, ln),
+                "residual_f64_cholesky_ex": chol_residual_f64(torch, zn,
+                                                              lnx)}
+        say(f"K5 {near}")
+        check(near["residual_f64"] <= K5_RESID_FACTOR *
+              near["residual_f64_cholesky_ex"], f"K5 {near}")
+        rec["near_identity"] = near
+        del x, zn, ln, lnx
+    # an indefinite entry: its info names the pivot, the others are intact
+    z = spd_stack(torch, device, 3, shapes[-1][1], seed=1)
+    z[1, 170, 170] = -1.0
+    l, info = call(z)
+    _, infox = torch.linalg.cholesky_ex(z)
+    rec["indefinite_info"] = info.tolist()
+    say(f"K5 info with an indefinite entry {info.tolist()}, cholesky_ex "
+        f"{infox.tolist()}")
+    check(info.tolist() == [0, 171, 0] == infox.tolist(), "K5 info")
+    del z, l, lp, lx, info
+
+    # the dense solve's stacks
+    z = spd_stack(torch, device, batch, n, seed=2)
+    flops = batch * n ** 3 / 3.0
+    nbytes = batch * 8.0 * n * n
+    bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+    reps = 3 if on_card else 1
+    before = kchol.launches
+    l, info = call(z)
+    lx, _ = torch.linalg.cholesky_ex(z)
+    full = {"shape": f"({batch}, {n}, {n}) f32", "bound_ms": bound,
+            "bound_by": "operations" if flops / PEAK_F32 > nbytes / PEAK_BYTES
+            else "bytes",
+            "residual": chol_residual(torch, z, l),
+            "residual_cholesky_ex": chol_residual(torch, z, lx),
+            "info": info.tolist(), "launches": kchol.launches - before}
+    del lx
+    check(full["residual"] <= K5_RESID_FACTOR * full["residual_cholesky_ex"]
+          + 1e-6, f"K5 residual at full size {full}")
+    # the plain version, timed once and its L kept for the parity check
+    kept = []
+    full["plain_ms"] = clock.ms(
+        lambda: kept.append(ref.cholesky_ref(z)[0]), 1, warm=0)
+    lp = kept.pop()
+    full["max_rel_err_plain"] = float((l - lp).abs().amax()
+                                      / lp.abs().amax())
+    del l, lp
+    say(f"K5 at full size against its plain version: "
+        f"{full['max_rel_err_plain']:.3e} of max|L|")
+    check(full["max_rel_err_plain"] <= K5_TOL, f"K5 against its plain "
+          f"version at full size {full['max_rel_err_plain']:.3e}")
+    check(not on_card or full["launches"] == 1, "K5 launches")
+    full["ms"] = clock.ms(lambda: call(z), reps)
+    full["library_ms"] = clock.ms(lambda: torch.linalg.cholesky_ex(z), reps)
+    full["library"] = "torch.linalg.cholesky_ex of the stack"
+    full["library_singles_ms"] = clock.ms(
+        lambda: [torch.linalg.cholesky_ex(z[i]) for i in range(batch)], reps)
+    full["tflops"] = flops / full["ms"] / 1e9
+    full["roofline_pct"] = 100.0 * bound / full["ms"]
+    if on_card:
+        # K5's own kernels by device time, the stack and one matrix
+        full["device"] = device_ms(torch, lambda: call(z), 1)
+        full["device_batch1"] = device_ms(torch, lambda: call(z[:1]), 1)
+        full["cusolver_batched_kernels"] = cusolver_kernels(
+            torch, lambda: torch.linalg.cholesky_ex(z))
+        full["cusolver_single_kernels"] = cusolver_kernels(
+            torch, lambda: torch.linalg.cholesky_ex(z[0]))
+    say(f"K5 {json.dumps(full)}")
+    rec["full"] = full
+    del z
+    # the sweep beside cholesky_ex (CHOLESKY_MIN_BATCH)
+    sweep = []
+    for m in (K5_SWEEP_N if on_card else (96, 160)):
+        for b in K5_SWEEP_BATCH:
+            z = spd_stack(torch, device, b, m, seed=3)
+            r_ = min(50, max(3, int(3e11 / (b * m ** 3)))) if on_card \
+                else 1
+            row = {"n": m, "batch": b,
+                   "k5_ms": clock.ms(lambda: call(z), r_),
+                   "cholesky_ex_ms": clock.ms(
+                       lambda: torch.linalg.cholesky_ex(z), r_)}
+            row["k5_faster"] = row["k5_ms"] < row["cholesky_ex_ms"]
+            say(f"K5 sweep {row}")
+            sweep.append(row)
+            del z
+    rec["sweep"] = sweep
+    rec["min_n"] = kchol.CHOLESKY_MIN_N
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
 def run_solve(torch, clock, p, a, counters):
     """One ``p.svd_info(a)`` (``p.svd(a)`` with its PolarInfo) with every
     launch count set to 0 just before and read just after; returns (u, s,
@@ -1576,13 +1803,20 @@ def phase_main(torch, device, clock, n):
     p = S.plan(cfg, (n, n), torch.float32, device=device)
     say(repr(p))
     check(len(p.schedule) == 2, f"schedule of {len(p.schedule)} iterations")
+    from repro_torch.kernels import cholesky as kchol
+
     runs = []
     for label in ("warm", "timed"):
         if device.type == "cuda" and label == "timed":
             torch.cuda.reset_peak_memory_stats()
+        k5_before = kchol.launches
         u, s, vh, secs, launches, _ = run_solve(torch, clock, p, a,
                                                 counters)
-        say(f"{label} solve: {secs:.3f} s, launches {launches}")
+        k5 = kchol.launches - k5_before
+        say(f"{label} solve: {secs:.3f} s, launches {launches}, K5 {k5}")
+        if device.type == "cuda":
+            check(k5 == K5_PER_SOLVE, f"K5 launched {k5} times in one "
+                  f"solve, expected {K5_PER_SOLVE}")
         if device.type == "cuda":
             for k, v in EXPECT_LAUNCHES.items():
                 check(launches[k] == v, f"{k} launched {launches[k]} times "
@@ -1592,7 +1826,8 @@ def phase_main(torch, device, clock, n):
         else None
     main = {"n": n, "kappa": KAPPA, "r": R, "iterations": len(p.schedule),
             "warm_s": runs[0][0], "timed_s": runs[1][0],
-            "launches_per_solve": runs[1][1], "peak_bytes": peak}
+            "launches_per_solve": runs[1][1], "peak_bytes": peak,
+            "k5_launches_per_solve": k5}
     main.update(accuracy(torch, a, u, s, vh, s_true))
     say(f"wall {runs[1][0]:.3f} s; peak memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}")
@@ -1730,13 +1965,20 @@ def phase_bf16(torch, device, clock, a, s_true):
     say(repr(p))
     check(p.compute_dtype == torch.bfloat16 and len(p.schedule) == 2,
           f"plan resolved to {p!r}, {len(p.schedule)} iterations")
+    from repro_torch.kernels import cholesky as kchol
+
     runs = []
     for label in ("warm", "timed"):
         if device.type == "cuda" and label == "timed":
             torch.cuda.reset_peak_memory_stats()
+        k5_before = kchol.launches
         u, s, vh, secs, launches, _ = run_solve(torch, clock, p, a,
                                                 counters)
-        say(f"{label} solve: {secs:.3f} s, launches {launches}")
+        k5 = kchol.launches - k5_before
+        say(f"{label} solve: {secs:.3f} s, launches {launches}, K5 {k5}")
+        if device.type == "cuda":
+            check(k5 == K5_PER_SOLVE, f"K5 launched {k5} times in one "
+                  f"solve, expected {K5_PER_SOLVE}")
         if device.type == "cuda":
             check(launches == EXPECT_BF16_LAUNCHES, f"the bf16 compute "
                   f"solve launched {launches}, expected "
@@ -2515,8 +2757,15 @@ def phase_topk(torch, device, clock, a, s_true, k, dnc_n):
         return rec, res
 
     say(f"== phase 16a: top-{k} by sketch (zolo_cuda panel)")
+    from repro_torch.kernels import cholesky as kchol
+
     p = SP.plan_topk(base, (n, n), torch.float32, device=device)
+    k5_before = kchol.launches
     rec, (u, s, vh) = run("sketch", p, lambda: p.topk(a))
+    # the sketch's and the panel's factorizations are at n = l < N0
+    rec["k5_launches"] = kchol.launches - k5_before
+    check(rec["k5_launches"] == 0, f"16a launched K5 "
+          f"{rec['k5_launches']} times")
     rec["residual"] = float(p.residual(a, u, s, vh))
     say(f"sketch: l {p.l}, q_iters {p.q_iters}, decision {p.decision}; "
         f"residual {rec['residual']:.3e}")
@@ -5402,6 +5651,8 @@ def main(argv=None) -> int:
                     help="also split one phase-5 solve, and one 17b solve "
                          "on rank 0, by device time under torch.profiler "
                          "(about 90 s more on the card)")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="run phases 1, 2 and 4c (K5) alone")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -5463,6 +5714,17 @@ def main(argv=None) -> int:
     record = {"device": phase_device(torch, device)}
     if device.type == "cuda":
         record["build"] = phase_build()
+    if args.k5_only:
+        record["k5"] = phase_k5(torch, device, clock, n, R)
+        record["seconds"] = time.perf_counter() - t_start
+        out_dir = os.path.join(HERE, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_k5.json"), "w") as f:
+            json.dump(record, f, indent=1, default=str)
+        say(json.dumps({"k5": record["k5"]["full"]}))
+        if device.type == "cuda":
+            say(record["device"]["nvidia_smi"])
+        return 0
     record["parity"], tensors, paths = phase_parity(
         torch, device, n, ragged, attn, mm_ragged, s_ragged, mm_aligned,
         mm_transposed)
@@ -5472,6 +5734,7 @@ def main(argv=None) -> int:
     times["muon"] = phase_times_muon(torch, device, clock, muon_shapes)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    record["k5"] = phase_k5(torch, device, clock, n, R)
     record["times"] = times
     record["path_launches"] = paths
     main_rec, a, s_true, s_main = phase_main(torch, device, clock, n)
@@ -5664,6 +5927,28 @@ def main(argv=None) -> int:
                 shape: muon_row(kt[key])
                 for shape, kt in times["muon"].items()}
         kernels.append(rec)
+    # K5: its launches on the paths that count them (phase 5's dense
+    # solve, 16a's top-k request), its times and error from phase 4c
+    k5 = record["k5"]["full"]
+    k5_paths = {"static_solve": main_rec["k5_launches_per_solve"],
+                "topk_sketch": topk_rec["sketch"]["k5_launches"]}
+    k5_row = {"name": "cholesky", "route": "cuda", "kernel_route": None,
+              "source": "src/repro_torch/kernels/csrc/cholesky.cu",
+              "replaces": "torch.linalg.cholesky_ex (no Pallas kernel)",
+              "launches": k5_paths["static_solve"],
+              "launches_by_path": k5_paths,
+              "max_rel_err_plain": k5["max_rel_err_plain"],
+              "max_rel_err_plain_parity": max(
+                  row["max_rel_err_plain"]
+                  for row in record["k5"]["parity"]),
+              "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+              "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+              "library_ms": k5["library_ms"],
+              "library_singles_ms": k5["library_singles_ms"],
+              "case": k5["shape"]}
+    if (k5.get("device") or {}).get("ms") is not None:
+        k5_row["device_ms"] = k5["device"]["ms"]
+    kernels.append(k5_row)
     record["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -10,6 +10,14 @@ masked device op.
 The Cholesky factorization and the triangular solve open the spans
 ``linalg.cholesky`` and ``linalg.trsm`` (:mod:`repro_torch.obs`) with
 their shapes, from which a reader counts their operations.
+
+The Cholesky factorization takes one of two routes, by the input's shape
+(:func:`repro_torch.kernels.cholesky.cholesky_route`, named in the span's
+``route``): ``"k5"``, a CUDA f32 stack of two or more matrices with n >=
+``CHOLESKY_MIN_N``, goes to the hand-written blocked kernel K5;
+``"cusolver"``, every other input (every CPU tensor among them), to
+``torch.linalg.cholesky_ex``.  Both return the same (L, info), with the
+same strides.
 """
 
 from __future__ import annotations
@@ -20,14 +28,20 @@ import math
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import cholesky as _kchol
+from repro_torch.kernels import ops as _kops
 
 
 def cholesky(z: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor; a batch entry that is not positive definite
     comes out all-NaN instead of raising."""
+    route = _kchol.cholesky_route(z)
     with obs.span("linalg.cholesky", batch=math.prod(z.shape[:-2]),
-                  n=z.shape[-1]):
-        l, info = torch.linalg.cholesky_ex(z)
+                  n=z.shape[-1], route=route):
+        if route == "k5":
+            l, info = _kops.cholesky(z)
+        else:
+            l, info = torch.linalg.cholesky_ex(z)
         return l.masked_fill_((info != 0)[..., None, None], float("nan"))
 
 

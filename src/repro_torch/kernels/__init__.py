@@ -13,6 +13,10 @@
 * ``flash_attention`` — K4, causal flash attention over (b, s, h, d)
                         (``csrc/flash_attention.cu``); reached through
                         ``ops.flash_attention``.
+* ``cholesky``        — K5, batched blocked Cholesky of f32 stacks
+                        (``csrc/cholesky.cu``); ``core.linalg.cholesky``
+                        routes CUDA stacks with n >= ``CHOLESKY_MIN_N``
+                        to ``ops.cholesky``.
 
 ``ops`` holds the public wrappers: a CPU tensor goes to the plain
 version in ``ref``, a CUDA tensor launches the kernel or raises.

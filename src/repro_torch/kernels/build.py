@@ -24,7 +24,8 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gram", "grouped_combine", "matmul", "flash_attention")
+SOURCES = ("gram", "grouped_combine", "matmul", "flash_attention",
+           "cholesky")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,6 +59,10 @@ SIGNATURES = {
                                  _F, _P),
         "zolo_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _LLP,
                                       _F, _P),
+    },
+    "cholesky": {
+        "zolo_cholesky_f32": (_P, _LL, _LL, _LL, _P, _I, _I, _P, _I, _P,
+                              _P),
     },
 }
 

@@ -1,7 +1,7 @@
-// Shared Hopper (sm_90a) plumbing of the port's K1, K3 and K4 kernels
-// (gram.cu, matmul.cu, flash_attention.cu): TMA tensor maps, mbarriers
-// and warpgroup matrix multiplies (wgmma) for their bf16 routes, and the
-// cp.async copies of K3's and K4's SIMT routes, written once.
+// Shared Hopper (sm_90a) plumbing of the port's K1, K3, K4 and K5 kernels
+// (gram.cu, matmul.cu, flash_attention.cu, cholesky.cu): TMA tensor maps,
+// mbarriers and warpgroup matrix multiplies (wgmma) for their bf16 routes,
+// and the cp.async copies of K3's, K4's and K5's SIMT routes, written once.
 //
 // * TMA: encode_bf16_map() builds a tiled CUtensorMap on the host with
 //   cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint so that

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.cholesky import cholesky_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.gram import gram_kernel_call
 from repro_torch.kernels.grouped_combine import grouped_combine_kernel_call
@@ -66,3 +67,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal=True).to(q.dtype)
     return flash_attention_kernel_call(q, k, v)
+
+
+def cholesky(z: torch.Tensor):
+    """(L, info) of an f32 stack (..., n, n), as ``torch.linalg.cholesky_ex``
+    returns them; K5's blocked algorithm (its plain version on the CPU)."""
+    if _on_cpu(z):
+        return ref.cholesky_ref(z)
+    return cholesky_kernel_call(z)

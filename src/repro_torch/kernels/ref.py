@@ -128,3 +128,82 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(z)
     p = (p / p.sum(dim=-1, keepdim=True)).to(f32)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.to(f32))
+
+
+# K5's block: the columns of a diagonal block and the rows of a panel
+# (csrc/cholesky.cu: kNB); and its panel workspace's rows, the depth of a
+# trailing update (kDepth there, where its timings are)
+CHOLESKY_BLOCK = 128
+CHOLESKY_DEPTH = 4 * CHOLESKY_BLOCK
+
+
+def cholesky_ref(z: torch.Tensor, block: int = CHOLESKY_BLOCK,
+                 depth: int = CHOLESKY_DEPTH):
+    """(L, info) of a stack of symmetric matrices, as
+    ``torch.linalg.cholesky_ex`` returns them: L lower (zero above the
+    diagonal, batched column-major strides), info int32 of the batch shape,
+    0 or the 1-based index of the first pivot that is not positive and
+    finite (L is then unspecified for that entry).  Reads Z's lower
+    triangle only.
+
+    K5's blocked algorithm step for step (``csrc/cholesky.cu``), on M = Lᵀ
+    row-major: for each outer step of ``depth`` columns (a multiple of
+    ``block``), for each ``block``-wide diagonal block inside it: the strip
+    update from the step's earlier panels, the block's unblocked factor,
+    the panel's forward substitution (also written to the workspace W);
+    then the trailing update M22 -= WᵀW over the step's panels."""
+    n = z.shape[-1]
+    batch_shape = z.shape[:-2]
+    m = torch.triu(z.reshape(-1, n, n).mT).contiguous()
+    b = m.shape[0]
+    info = torch.zeros(b, dtype=torch.int32, device=z.device)
+    w = torch.empty((b, depth, n), dtype=m.dtype, device=z.device)
+    for o in range(0, n, depth):
+        e = min(o + depth, n)
+        for s in range(o, e, block):
+            nb = min(block, n - s)
+            if s > o:
+                _chol_update_ref(m, w[:, :s - o, s - o:n - o], s, s + nb)
+            _chol_diag_ref(m, s, nb, info)
+            if s + nb < n:
+                x = _chol_panel_ref(m, s, nb)
+                m[:, s:s + nb, s + nb:] = x
+                w[:, s - o:s - o + nb, s + nb - o:n - o] = x
+        if e < n:
+            _chol_update_ref(m, w[:, :e - o, e - o:n - o], e, n)
+    return m.reshape(batch_shape + (n, n)).mT, info.reshape(batch_shape)
+
+
+def _chol_update_ref(m, w, g, rows_end):
+    """M[g:rows_end, g:] -= the upper part of (WᵀW)[:rows_end - g]."""
+    upd = w[:, :, :rows_end - g].mT @ w
+    m[:, g:rows_end, g:] -= torch.triu(upd)
+
+
+def _chol_diag_ref(m, s, nb, info):
+    """Unblocked factor of the diagonal block at (s, s), in K5's order:
+    pivot j scales row j by 1/sqrt(piv), then S[r][c] -= S[j][r] (S[j][c] /
+    piv) for j < r <= c.  Sets info at the first bad pivot."""
+    a = m[:, s:s + nb, s:s + nb].clone()
+    for j in range(nb):
+        piv = a[:, j, j]
+        bad = ~(piv > 0) | torch.isinf(piv)
+        info.copy_(torch.where(bad & (info == 0), s + j + 1, info))
+        d = torch.sqrt(piv)
+        rd = 1.0 / d
+        sj = a[:, j, j + 1:].clone()
+        u = sj * rd[:, None]
+        a[:, j, j + 1:] = u
+        a[:, j, j] = d
+        a[:, j + 1:, j + 1:] -= sj[:, :, None] * (u * rd[:, None])[:, None, :]
+    m[:, s:s + nb, s:s + nb] = torch.triu(a)
+
+
+def _chol_panel_ref(m, s, nb):
+    """U11⁻ᵀ M12 by forward substitution, a row of M12 at a time."""
+    u = m[:, s:s + nb, s:s + nb]
+    x = m[:, s:s + nb, s + nb:].clone()
+    for q in range(nb):
+        x[:, q] /= u[:, q, q, None]
+        x[:, q + 1:] -= u[:, q, q + 1:, None] * x[:, q:q + 1]
+    return x

@@ -1,5 +1,6 @@
 """The port's kernels K1 (fused shifted Gram), K2 (r-term combine), K3
-(tiled matmul) and K4 (causal flash attention).
+(tiled matmul), K4 (causal flash attention) and K5 (batched blocked
+Cholesky; its plain version's CPU tests are in test_torch_cholesky.py).
 
 On the CPU every wrapper runs its plain PyTorch version; those are held
 against the reference's jnp oracles (``repro.kernels.ref``) and against
@@ -27,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.kernels import cholesky as kchol  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import gram as kgram  # noqa: E402
 from repro_torch.kernels import grouped_combine as kcomb  # noqa: E402
@@ -292,6 +294,8 @@ def test_wrappers_refuse_devices_without_a_path():
         ops.matmul(a, a)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(a[None, None], a[None, None], a[None, None])
+    with pytest.raises(ValueError, match="device"):
+        ops.cholesky(a)
 
 
 def test_launch_wrappers_refuse_cpu_tensors():
@@ -305,10 +309,13 @@ def test_launch_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kflash.flash_attention_kernel_call(a[None, None], a[None, None],
                                            a[None, None])
+    with pytest.raises(ValueError, match="CUDA"):
+        kchol.cholesky_kernel_call(a @ a.mT)
     assert kgram.gram_plain is ref.gram_ref
     assert kcomb.grouped_combine_plain is ref.grouped_combine_ref
     assert kmm.matmul_plain is ref.matmul_ref
     assert kflash.flash_attention_plain is ref.flash_attention_ref
+    assert kchol.cholesky_plain is ref.cholesky_ref
 
 
 def test_build_lists_every_kernel_source():
@@ -316,7 +323,8 @@ def test_build_lists_every_kernel_source():
 
     srcs = {p.stem for p in build.CSRC.glob("*.cu")}
     assert set(build.SOURCES) == srcs == set(build.SIGNATURES)
-    assert srcs == {"gram", "grouped_combine", "matmul", "flash_attention"}
+    assert srcs == {"gram", "grouped_combine", "matmul", "flash_attention",
+                    "cholesky"}
     # the one shared header is no library of its own: it is hashed into
     # every source's target (test_torch_hopper.py)
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {"hopper.cuh"}
@@ -494,3 +502,36 @@ def test_k3_k4_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         t = torch.ones((1, 8, 2, 32), device=cuda)[..., ::2]
         ops.flash_attention(t, t, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(4, 1000), (1, 4097)])
+def test_cholesky_kernel_matches_plain(cuda, b, n):
+    # shifted Grams G / n + c_j I of one Gaussian X (kappa <= ~4e3), junk
+    # above the diagonal: K5 reads the lower triangle only
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, n), generator=gen, device=cuda)
+    c = torch.logspace(-3, 0, 4, device=cuda)[:b]
+    z = (x.mT @ x / n)[None] + c[:, None, None] * torch.eye(n, device=cuda)
+    z = torch.tril(z) + 7.0 * torch.triu(torch.ones_like(z), 1)
+    before = kchol.launches
+    got, info = kchol.cholesky_kernel_call(z)
+    assert kchol.launches == before + 1
+    want, winfo = kchol.cholesky_plain(z)
+    lib, _ = torch.linalg.cholesky_ex(z)
+    torch.cuda.synchronize()
+    assert not info.any() and not winfo.any()
+    assert got.stride() == lib.stride()
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    # f32 in another summation order: 1e-5 of max|L| at kappa(Z) ~ 4e3
+    # (1.2e-6 and 1.4e-6 on an H100 at these shapes; chip_smoke.py K5_TOL)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+    # the factor is as good as cuSOLVER's: ||L L^T - Z||_F / ||Z||_F
+    zs = torch.tril(z) + torch.tril(z, -1).mT
+
+    def resid(l):
+        return (torch.linalg.matrix_norm(l @ l.mT - zs)
+                / torch.linalg.matrix_norm(zs)).amax().item()
+
+    assert resid(got) <= 4.0 * resid(lib) + 1e-6

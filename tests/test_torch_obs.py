@@ -97,7 +97,9 @@ def test_dense_solve_tree_and_work():
     }
     work = {name: [w for n, _, w in rec if n == name]
             for name in ("linalg.cholesky", "linalg.trsm", "svd.eigh")}
-    assert work["linalg.cholesky"] == [{"batch": 4, "n": N}] * 3
+    # n = 64 is below K5's CHOLESKY_MIN_N: cholesky_ex's route
+    assert work["linalg.cholesky"] == [{"batch": 4, "n": N,
+                                        "route": "cusolver"}] * 3
     assert work["linalg.trsm"] == [{"batch": 4, "n": N, "k": N}] * 6
     assert work["svd.eigh"] == [{"n": N}]
     assert all(w == {} for n, _, w in rec if n.startswith("svd.")
